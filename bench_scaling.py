@@ -1,12 +1,11 @@
-"""Pod-free scaling-efficiency protocol: isolate the collective overhead of
-the data-parallel SVI step (BASELINE north star: >=80% seq/s efficiency from
-1 host to N>=2 hosts; VERDICT r3 item 5).
+"""Scaling-efficiency protocol: isolate the collective overhead of the
+data-parallel SVI step (BASELINE north star: >=80% seq/s efficiency from
+1 device to N).
 
-Real multi-host hardware is unavailable here (one chip), and raw virtual-
-device CPU throughput numbers are contention noise (8 virtual devices on 4
-physical cores). This harness therefore measures the one thing that
-separates N-device from 1-device execution — the per-step COLLECTIVE cost —
-by running the SAME per-device work twice on the same mesh:
+It runs on the devices JAX finds and says which (the first output line).
+It measures the one thing that separates N-device from 1-device execution
+— the per-step COLLECTIVE cost — by running the SAME per-device work twice
+on the same mesh:
 
   (a) "psum":  the production step — per-shard local E-steps, stats
       psum-reduced over the mesh, replicated natural-gradient update;
@@ -21,9 +20,10 @@ K*K + K*stats pytree once per step), so
     efficiency_bound = t_local / t_psum
 
 is the fraction of a step available for perfect scaling; 1 - bound is the
-collective fraction. On real ICI the psum of this KB-scale pytree is
-microseconds — the CPU thread-rendezvous measured here is a conservative
-OVERestimate of the TPU collective fraction.
+collective fraction. On virtual CPU devices (a rehearsal, not a device
+measurement) the thread rendezvous overestimates it, and throughput is
+core contention, so meshes larger than the physical core count are
+flagged "oversubscribed".
 
 The 2-D (data x time) composition is measured as context: the same global
 work on a pure-DP (N, 1) mesh vs a (N/2, 2) data x time mesh (exact
@@ -31,25 +31,18 @@ long-chain FB adds its boundary all_gather/ppermute collectives plus the
 three-phase schedule's extra math; its overhead is algorithmic, not just
 communication, so it is reported as a composition ratio, not a bound).
 
-Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-          python bench_scaling.py
-Emits one JSON line per measurement + a summary line. Results + methodology
-notes: BASELINE.md "Scaling" section.
+Run:  python bench_scaling.py      # on the GPUs of this machine
+      JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+          python bench_scaling.py      # rehearsal on virtual CPU devices
+Emits a device line, one JSON line per measurement and a summary line.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 from functools import partial
-
-if "XLA_FLAGS" not in os.environ or "host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
-    )
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax
 import jax.numpy as jnp
@@ -57,12 +50,8 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-# Fixed per-device work: B_LOCAL sequences of T steps, K states, D dims.
-# Sized so the per-device E-step work is within ~2x of the production
-# ratio's (north-star config 5: B=1024 over 8 devices = 128 seqs/device at
-# T=1k) while the psum payload is CONSTANT (~2 KB of stats) — the
-# collective fraction measured here is therefore representative of, or
-# conservative for, the production step.
+# Fixed per-device work: B_LOCAL sequences of T steps, K states, D dims,
+# with a CONSTANT psum payload (~2 KB of stats) whatever the device count.
 B_LOCAL, T, K, D = 64, 500, 16, 4
 ITERS = 20
 
@@ -105,7 +94,7 @@ def dp_step_time(n_dev, with_psum):
     obs = shard_batch(obs, mesh)
 
     def local(p, o):
-        stats, _ = batch_local_step(p, emission, o, method="scan", need_gamma=False)
+        stats, _ = batch_local_step(p, emission, o, need_gamma=False)
         if with_psum:
             return jax.tree.map(partial(lax.psum, axis_name="data"), stats)
         return jax.tree.map(lambda x: x * n_dev, stats)
@@ -210,9 +199,9 @@ def psum_microbench(n_dev):
 
 def ts_stream_step_time(n_dev, t_len):
     """Per-step time of the likelihood-FUSED sharded streaming E-step
-    (r5 tier: time_sharded_fused_stats via time_sharded_stream_stats) on
-    an n_dev time mesh at fixed global T — the strong-scaling composition
-    measurement for the multi-chip T≈250M route."""
+    (time_sharded_fused_stats via time_sharded_stream_stats) on an n_dev
+    time mesh at fixed global T — the strong-scaling composition
+    measurement for the multi-device long-chain route."""
     import jax.numpy as jnp
 
     from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
@@ -257,8 +246,13 @@ def ts_stream_step_time(n_dev, t_len):
 
 
 def main():
-    n_max = len(jax.devices())
-    phys = os.cpu_count() or 1
+    devices = jax.devices()
+    n_max = len(devices)
+    print(json.dumps({"platform": devices[0].platform,
+                      "device_kind": devices[0].device_kind, "count": n_max}),
+          flush=True)
+    # virtual CPU devices beyond the physical cores serialize at every psum
+    phys = (os.cpu_count() or 1) if devices[0].platform == "cpu" else n_max
     out = []
     for n in (2, 4, 8):
         if n > n_max:
@@ -294,9 +288,8 @@ def main():
         print(json.dumps(rec), flush=True)
         out.append(rec)
 
-    # fused sharded streaming tier (r5): strong scaling at fixed global T
-    # on physical meshes — the composition measurement for the multi-chip
-    # long-chain route
+    # fused sharded streaming tier: strong scaling at fixed global T —
+    # the composition measurement for the multi-device long-chain route
     TS_T = 262_144
     ts_times = {}
     for n in (1, 2, 4):
@@ -315,11 +308,9 @@ def main():
             },
             "note": "partial wall speedup is EXPECTED: the per-device "
                     "phase-3 sequential depth is block_size-fixed (only "
-                    "the per-step row count shrinks with devices), and "
-                    "on virtual CPU devices the 1-dev baseline already "
-                    "uses all cores via XLA intra-op threading. The "
+                    "the per-step row count shrinks with devices). The "
                     "tier's primary scaling axis is MEMORY capacity — T "
-                    "beyond one chip's HBM — with the speedup as bonus.",
+                    "beyond one device's memory — with the speedup as bonus.",
         }
         print(json.dumps(rec), flush=True)
         out.append(rec)
@@ -337,10 +328,9 @@ def main():
         "min_efficiency_bound_physical": min(bounds) if bounds else None,
         "north_star": ">=0.80",
         "pass": bool(bounds and min(bounds) >= 0.80),
+        "platform": devices[0].platform,
         "note": "bound from non-oversubscribed meshes; the psum payload is "
-                "~2 KB and constant in device count, and CPU thread-"
-                "rendezvous collectives overestimate TPU ICI cost for it — "
-                "see BASELINE.md Scaling methodology",
+                "~2 KB and constant in device count",
     }), flush=True)
 
 

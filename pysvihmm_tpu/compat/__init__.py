@@ -5,7 +5,7 @@ The reference exposes engine classes constructed with
 ``var_init / var_tran / var_emit`` attributes and an ``.infer()`` loop
 (``pysvihmm/hmmbase.py`` + per-engine modules — reconstructed, SURVEY.md
 §2.2; class names are [MED]-confidence reconstructions, aliased liberally).
-This module wraps the functional TPU engines in that ergonomic shape so a
+This module wraps the functional engines in that ergonomic shape so a
 pysvihmm user can switch with minimal edits:
 
     from pysvihmm_tpu.compat import VBHMM, SVIHMM

@@ -171,6 +171,41 @@ def gen_gaussian_dataset(
     return y, z, params
 
 
+def sample_sticky_states(
+    key: jax.Array, K: int, self_prob: float, T: int
+) -> jax.Array:
+    """One state path (T,) int32 of the sticky chain of
+    :func:`_sticky_transitions` with a uniform initial state, exactly and
+    in parallel over T (no sequential rollout).
+
+    A step stays with probability self_prob and otherwise moves to one of
+    the other K-1 states uniformly, i.e. adds an offset d_t in {1..K-1}
+    modulo K. So z_t = (z_0 + sum_{s<=t} d_s) mod K: a modular prefix sum.
+    """
+    k0, kj, ko = jax.random.split(key, 3)
+    z0 = jax.random.randint(k0, (1,), 0, K, dtype=jnp.int32)
+    jump = jax.random.uniform(kj, (T - 1,)) >= self_prob
+    offset = jnp.where(jump, jax.random.randint(ko, (T - 1,), 1, K, dtype=jnp.int32), 0)
+    steps = jnp.concatenate([z0, offset])
+    return jax.lax.associative_scan(lambda a, b: (a + b) % K, steps)
+
+
+def gen_gaussian_chain(
+    key: jax.Array, K: int, D: int, T: int, *, self_prob: float = 0.8, **kw
+) -> tuple[jax.Array, jax.Array, TrueParams]:
+    """One long Gaussian chain (T, D) for the long-chain and SVI engines.
+
+    Same model as :func:`gen_gaussian_dataset` with one sequence, but the
+    state path comes from :func:`sample_sticky_states`, so T = 10^7+ costs
+    a few parallel passes instead of T sequential scan steps.
+    """
+    kp, kz, ky = jax.random.split(key, 3)
+    params = make_gaussian_params(kp, K, D, self_prob=self_prob, **kw)
+    z = sample_sticky_states(kz, K, self_prob, T)
+    y = GaussianNIW.sample_obs(ky, params.theta, z)
+    return y, z, params
+
+
 def make_diag_gaussian_params(
     key: jax.Array,
     K: int,

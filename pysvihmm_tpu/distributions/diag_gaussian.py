@@ -1,6 +1,6 @@
 """Diagonal-Gaussian emissions under per-dimension Normal-Inverse-Gamma priors.
 
-TPU-native replacement for ``pybasicbayes.distributions.DiagonalGaussian``,
+Replacement for ``pybasicbayes.distributions.DiagonalGaussian``,
 the diagonal-covariance sibling of the ``Gaussian`` class the reference's
 ``var_emit`` lists hold (``pysvihmm/hmmbase.py``, reconstructed — SURVEY.md
 §2.2). Same four-method contract as :mod:`.niw`: ``expected_log_likelihood``,
@@ -10,12 +10,12 @@ the diagonal-covariance sibling of the ``Gaussian`` class the reference's
 Model, independently per dimension d:
     sigma2_d ~ InvGamma(a_d, b_d);  mu_d | sigma2_d ~ N(m_d, sigma2_d / kappa_d)
 
-Design notes (TPU-first):
-  * Everything is elementwise over (..., D) — no Cholesky, no D x D tiles
-    padding out to 128-lane waste. The expected log-likelihood is linear in
-    the per-observation features [1, y, y^2] (width 1 + 2D vs the full-
-    covariance family's 1 + D + D(D+1)/2), so both the likelihood matmul and
-    the sufficient-statistics matmul of the fused Pallas E-step shrink ~D/4x.
+Design notes:
+  * Everything is elementwise over (..., D) — no Cholesky, no D x D tiles.
+    The expected log-likelihood is linear in the per-observation features
+    [1, y, y^2] (width 1 + 2D vs the full-covariance family's
+    1 + D + D(D+1)/2), so both the likelihood matmul and the
+    sufficient-statistics matmul shrink ~D/4x.
   * Natural-parameter coordinates (kappa m, kappa, 2b + kappa m^2, 2a) make
     the SVI update a fused elementwise blend, with the SAME sufficient-
     statistic map shape t = (sum_y, n, sum_y2, n) as the NIW family.
@@ -93,7 +93,7 @@ def ell_params(q: NIG) -> EllParams:
 
 def expected_log_likelihood(q: NIG, y: jax.Array) -> jax.Array:
     """E_q[log N(y_t | mu_k, diag sigma2_k)]: y (..., D), q leading (K,) ->
-    (..., K). Two thin (.., D) @ (D, K) matmuls — MXU-shaped, no (.., K, D)
+    (..., K). Two thin (.., D) @ (D, K) matmuls — no (.., K, D)
     intermediate."""
     p = ell_params(q)
     lin = jnp.einsum("...d,kd->...k", y, p.c1)

@@ -1,6 +1,6 @@
 """Dirichlet distribution module (rows of conjugate Dirichlet posteriors).
 
-TPU-native replacement for the Dirichlet machinery the reference delegates to
+Replacement for the Dirichlet machinery the reference delegates to
 ``pybasicbayes`` plus the E[log pi]/E[log A] helpers in ``pysvihmm/hmmbase.py``
 (reconstructed — see SURVEY.md §2.2; the reference mount was empty, so parity
 is against the math of Foti et al. 2014, arXiv:1411.1670).

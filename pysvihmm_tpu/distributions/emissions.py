@@ -18,9 +18,9 @@ Families:
     Gamma priors (extension beyond the reference's family list).
 
 Families exposing ``ell_features`` / ``ell_feature_matrix`` /
-``unpack_flat_stats`` plug directly into the fused Pallas E-step
-(engines/base.py): the expected log-likelihood is feats @ W and the emission
-sufficient statistics are one gamma^T @ feats matmul unpacked per family.
+``unpack_flat_stats`` have a feature form: the expected log-likelihood is
+feats @ W and the emission sufficient statistics are one gamma^T @ feats
+matmul unpacked per family.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class GaussianNIW:
 
     @staticmethod
     def unpack_flat_stats(params: NIW, S: jax.Array) -> GaussianStats:
-        """(K, 1 + D + D(D+1)/2) fused-kernel accumulator -> GaussianStats.
+        """(K, 1 + D + D(D+1)/2) flat gamma^T @ feats accumulator -> GaussianStats.
 
         The triu stat columns are the raw sums sum w gamma y_i y_j for
         i <= j (niw.ell_features layout); mirror them back to the full
@@ -200,7 +200,7 @@ class DiagonalGaussianNIG:
 
     @staticmethod
     def unpack_flat_stats(params: NIG, S: jax.Array) -> DiagGaussianStats:
-        """(K, 1+2D) fused-kernel accumulator -> DiagGaussianStats."""
+        """(K, 1+2D) flat gamma^T @ feats accumulator -> DiagGaussianStats."""
         D = params.mean.shape[-1]
         return DiagGaussianStats(
             n=S[:, 0], sum_y=S[:, 1 : 1 + D], sum_y2=S[:, 1 + D :]
@@ -274,7 +274,7 @@ class MultinomialDirichlet:
 
     @staticmethod
     def unpack_flat_stats(params: jax.Array, S: jax.Array) -> jax.Array:
-        """(K, V) fused-kernel accumulator IS the Dirichlet stats matrix."""
+        """(K, V) flat gamma^T @ one-hot accumulator IS the Dirichlet stats matrix."""
         return S
 
 
@@ -349,7 +349,7 @@ class PoissonGamma:
 
     @staticmethod
     def unpack_flat_stats(params: GammaP, S: jax.Array) -> PoissonStats:
-        """(K, 2+D) fused-kernel accumulator -> PoissonStats (the trailing
+        """(K, 2+D) flat gamma^T @ feats accumulator -> PoissonStats (the trailing
         log-factorial column is not a sufficient statistic; dropped)."""
         D = params.a.shape[-1]
         return PoissonStats(n=S[:, 0], sum_y=S[:, 1 : 1 + D])

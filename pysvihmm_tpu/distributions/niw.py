@@ -1,6 +1,6 @@
 """Normal-Inverse-Wishart (NIW) conjugate prior for Gaussian emissions.
 
-TPU-native replacement for ``pybasicbayes.distributions.Gaussian`` as used by
+Replacement for ``pybasicbayes.distributions.Gaussian`` as used by
 ``pysvihmm`` (reconstructed — SURVEY.md §2.2): ``expected_log_likelihood``,
 ``meanfieldupdate`` (= :func:`posterior`), ``meanfield_sgdstep``
 (= :func:`nat_grad_step`), ``get_vlb`` (= :func:`kl`).
@@ -8,11 +8,11 @@ TPU-native replacement for ``pybasicbayes.distributions.Gaussian`` as used by
 Parameters are a pytree batched over arbitrary leading axes (canonically the
 K hidden states): mean (..., D), kappa (...), nu (...), psi (..., D, D).
 
-Design notes (TPU-first):
+Design notes:
   * The expensive per-observation quantity E_q[log N(y | mu, Sigma)] is
     evaluated through precomputed per-state quadratic-form parameters
     (P = nu * psi^{-1}, h = P m, const) so the T x K likelihood matrix is a
-    single (T, D) @ (D, K*D) matmul + reduction — MXU-shaped, no per-t loop.
+    single (T, D) @ (D, K*D) matmul + reduction — no per-t loop.
   * Natural-gradient steps are linear blends in the natural parameterization
     (eta1 = kappa*m, eta2 = kappa, eta3 = psi + kappa m m^T, eta4 = nu), which
     makes the SVI update a fused elementwise op.
@@ -132,9 +132,9 @@ def expected_log_likelihood(q: NIW, y: jax.Array) -> jax.Array:
     D = y.shape[-1]
     # Quadratic form via y (x) y features: a (..., D^2) @ (D^2, K) matmul.
     # The naive "...d,kde->...ke" einsum materializes a (..., K, D)
-    # intermediate — K/D times the data — which at B*T=1M costs more HBM
-    # than the entire forward-backward; the feature matmul keeps the
-    # intermediate at D^2 floats/obs and runs on the MXU.
+    # intermediate — K/D times the data — which at B*T=1M costs more memory
+    # traffic than the entire forward-backward; the feature matmul keeps
+    # the intermediate at D^2 floats/obs.
     yy = _pair_features(y)
     quad = jnp.einsum("...f,kf->...k", yy, p.P.reshape(p.P.shape[0], D * D))
     lin = jnp.einsum("...d,kd->...k", y, p.h)
@@ -147,13 +147,13 @@ def ell_features(y: jax.Array) -> jax.Array:
     ``expected_log_likelihood(q, y) == ell_features(y) @ ell_feature_matrix(q)``
     and the SAME array is the per-observation feature side of the Gaussian
     sufficient-statistics matmul — computing it once halves the dominant
-    per-observation HBM traffic of the E-step's emission work.
+    per-observation memory traffic of the E-step's emission work.
 
     The quadratic block keeps only the UPPER TRIANGLE (with diagonal) of
     y (x) y in row-major (i, j >= i) order: y y^T is symmetric, so the
     full D^2 block spent 44% of the feature width (64 vs 36 at D=8) on
-    duplicate columns — pure extra matmul width and stat-accumulator
-    lanes in the fused kernels. The off-diagonal 2x lives in the WEIGHTS
+    duplicate columns — pure extra matmul width. The off-diagonal 2x
+    lives in the WEIGHTS
     (:func:`ell_feature_matrix`), so the stat columns stay the raw sums
     sum w gamma y_i y_j that :meth:`unpack_flat_stats` mirrors back to
     the full symmetric matrix.
@@ -184,10 +184,10 @@ def ell_feature_matrix(q: NIW) -> jax.Array:
 def _triu_features(y: jax.Array) -> jax.Array:
     """(..., D) -> (..., D(D+1)/2) products y_i y_j for i <= j, row-major.
 
-    Lane concatenation of D shrinking broadcast-multiplies — never through
-    a padded (..., D, D) intermediate (see :func:`_pair_features`).
+    Concatenation of D shrinking broadcast-multiplies — never through a
+    (..., D, D) intermediate (see :func:`_pair_features`).
     PYSVIHMM_GATHER_FEATS (measurement knob): one multiply of two
-    lane-gathered (..., P) arrays instead of the D-piece concat."""
+    gathered (..., P) arrays instead of the D-piece concat."""
     import os
 
     D = y.shape[-1]
@@ -202,9 +202,8 @@ def _triu_features(y: jax.Array) -> jax.Array:
 def _pair_features(y: jax.Array) -> jax.Array:
     """(..., D) -> (..., D*D) pairwise products y_d * y_e, f = d*D + e.
 
-    Built by lane concatenation of D broadcast-multiplies — NEVER through a
-    (..., D, D) intermediate: trailing dims < 128 pad to a full 128-lane
-    tile on TPU, so a (N, 8, 8) array occupies 16x its logical bytes.
+    Built by concatenation of D broadcast-multiplies — never through a
+    (..., D, D) intermediate, whose tiny trailing dims lay out poorly.
     """
     D = y.shape[-1]
     return jnp.concatenate([y[..., d : d + 1] * y for d in range(D)], axis=-1)
@@ -214,11 +213,11 @@ def suff_stats(gamma: jax.Array, y: jax.Array) -> GaussianStats:
     """Expected sufficient stats weighted by state responsibilities.
 
     gamma: (..., T, K) weights; y: (..., T, D). Returns stats with leading
-    (..., K). yy^T contraction is a (K, T) @ (T, D*D) matmul — MXU-shaped.
+    (..., K). yy^T contraction is a (K, T) @ (T, D*D) matmul.
     """
     n = jnp.sum(gamma, axis=-2)
     sum_y = jnp.einsum("...tk,...td->...kd", gamma, y)
-    # (K, T) @ (T, D^2) MXU matmul over y (x) y features — the triple
+    # (K, T) @ (T, D^2) matmul over y (x) y features — the triple
     # einsum's (T, K, D) / (T, D, D) intermediates are K/D times the data
     D = y.shape[-1]
     sum_yyT = jnp.einsum("...tk,...tf->...kf", gamma, _pair_features(y)).reshape(

@@ -8,10 +8,10 @@ per-state count vectors y in N^D with independent rates,
 
 Same four-method contract as :mod:`.niw` / :mod:`.diag_gaussian`
 (``expected_log_likelihood`` / ``posterior`` / ``nat_grad_step`` / ``kl``),
-so every engine (batch VB, SGD, SVI, meta-obs, Gibbs) and every FB path —
-including the fused Pallas E-step — works unchanged.
+so every engine (batch VB, SGD, SVI, meta-obs, Gibbs) and every FB path
+works unchanged.
 
-Design notes (TPU-first):
+Design notes:
   * The expected log-likelihood is LINEAR in the per-observation features
     [1, y, sum_d log y_d!] (width 2 + D):
         E[log p(y | lambda_k)] = sum_d ( y_d E[log lambda_kd] - E[lambda_kd] )
@@ -74,8 +74,8 @@ def ell_features(y: jax.Array) -> jax.Array:
     """(..., D) -> (..., 2+D) features [1, y, sum_d log y_d!].
 
     ``expected_log_likelihood(q, y) == ell_features(y) @ ell_feature_matrix(q)``
-    and the same array's [1, y] columns are the sufficient-stat side of the
-    fused kernels' stat contraction."""
+    and the same array's [1, y] columns are the sufficient-stat side of a
+    flat gamma^T @ feats stat contraction."""
     ones = jnp.ones(y.shape[:-1] + (1,), y.dtype)
     lgy = jnp.sum(gammaln(y + 1.0), axis=-1, keepdims=True)
     return jnp.concatenate([ones, y, lgy], axis=-1)

@@ -17,8 +17,7 @@ import jax.numpy as jnp
 from ..distributions import dirichlet
 from ..models.hmm import HMMParams
 from ..utils.schedules import power_schedule
-from .. import messages
-from .base import batch_local_step, elbo_from_stats, prepare_fused_obs
+from .base import batch_local_step, elbo_from_stats
 from ..utils.precision import f32_matmuls
 
 
@@ -63,17 +62,12 @@ def fit_state(
 ) -> tuple[BatchSGDState, jax.Array]:
     """State-in/state-out fit so callers can run in segments (periodic
     held-out scoring, checkpointing) without restarting the rho_t schedule
-    — the step counter rides in the state. The fused path's data-only
-    feature array is hoisted out of the scan once (batch_vb.fit note)."""
-    prepared = None
-    if messages.resolve_method(method, time_len=obs.shape[1]) == "pallas_fused":
-        prepared = prepare_fused_obs(state.params, emission, obs)
+    — the step counter rides in the state."""
 
     @f32_matmuls
     def body(s, _):
         params = s.params
-        stats, _ = batch_local_step(params, emission, obs, method,
-                                    need_gamma=False, prepared=prepared)
+        stats, _ = batch_local_step(params, emission, obs, method, need_gamma=False)
         elbo = elbo_from_stats(params, prior, emission, stats.log_z)
         rho = power_schedule(s.step.astype(params.init.dtype), tau, kappa)
         new_params = HMMParams(

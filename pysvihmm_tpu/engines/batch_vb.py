@@ -5,8 +5,8 @@ local update on all sequences followed by the exact conjugate global update;
 the reported ELBO sequence is strictly non-decreasing (a real invariant of
 coordinate-ascent VB, property-tested in tests/test_batch_vb.py).
 
-TPU design: one jitted step = vmapped E-step over the sequence batch (MXU
-scans) + fused conjugate updates. `fit` drives it with `lax.scan` so the
+Design: one jitted step = batched E-step over the sequence batch + fused
+conjugate updates. `fit` drives it with `lax.scan` so the
 whole inference loop compiles to a single XLA program; the batch axis may be
 sharded over a device mesh (see pysvihmm_tpu.parallel) in which case the
 stat sums below become psums automatically under jit.
@@ -20,16 +20,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .. import messages
 from ..distributions import dirichlet
 from ..models.hmm import HMMParams, init_params
 from ..utils.precision import f32_matmuls
-from .base import (
-    batch_local_step,
-    elbo_from_stats,
-    long_chain_local_stats,
-    prepare_fused_obs,
-)
+from .base import batch_local_step, elbo_from_stats, long_chain_local_stats
 
 
 class BatchVBState(NamedTuple):
@@ -69,22 +63,11 @@ def fit(
     stopping is done host-side by the caller if needed (the reference stops
     on relative ELBO change; we return the full history instead so the loop
     stays device-resident).
-
-    On the fused TPU path, the per-observation feature array (data-only,
-    hence loop-invariant for THIS engine) is precomputed once outside the
-    scan — XLA does not hoist it by itself, and it costs ~30% of the
-    fused E-step when rebuilt every iteration (engines/base.py::
-    prepare_fused_obs). The scan closure makes it a loop-invariant
-    operand.
     """
-    prepared = None
-    if messages.resolve_method(method, time_len=obs.shape[1]) == "pallas_fused":
-        prepared = prepare_fused_obs(params, emission, obs)
 
     @f32_matmuls
     def body(p, _):
-        stats, _ = batch_local_step(p, emission, obs, method, need_gamma=False,
-                                    prepared=prepared)
+        stats, _ = batch_local_step(p, emission, obs, method, need_gamma=False)
         elbo = elbo_from_stats(p, prior, emission, stats.log_z)
         new_p = HMMParams(
             init=dirichlet.posterior(prior.init, stats.init),
@@ -110,10 +93,10 @@ def fit_restarts(
 
     Coordinate-ascent VB is deterministic given its init, and single-seed
     runs can land in merged-state local optima on hard data. The reference's
-    workflow re-runs the engine by hand; on TPU the idiomatic answer is to
+    workflow re-runs the engine by hand; here the idiomatic answer is to
     vmap the *entire* fit over a batch of farthest-point/noise inits — one
-    compile, the restart axis rides the MXU alongside the sequence batch —
-    and select the winner by final ELBO on device.
+    compile, the restart axis batched alongside the sequence batch — and
+    select the winner by final ELBO on device.
 
     Returns (best params, elbo histories (num_restarts, num_iters),
     best restart index). `elbos[best, -1]` is the winning ELBO.
@@ -135,9 +118,8 @@ def make_long_chain_step(emission, block_size: int = 256,
     The single-device counterpart of ``parallel.time_parallel.make_ts_vb_step``
     for the reference paper's T = millions single-chain regime: the E-step
     streams through ``engines.base.long_chain_local_stats`` (default: the
-    likelihood-fused tier — T≈100M Gaussian / 250M multinomial on one
-    chip; ``time_minor=True`` takes the chain feature-major (D, T), the
-    lane-dense TPU layout large Gaussian chains need).
+    likelihood-fused tier; ``time_minor=True`` takes the chain
+    feature-major (D, T)).
     (params, prior, chain (T, D) | (T,) | (D, T)) -> (new_params, elbo).
     """
 

@@ -38,7 +38,7 @@ class GibbsState(NamedTuple):
 
 
 def _count_stats(z: jax.Array, K: int, dtype):
-    """Initial/transition counts from hard paths via one-hot matmuls (MXU)."""
+    """Initial/transition counts from hard paths via one-hot matmuls."""
     oh = jax.nn.one_hot(z, K, dtype=dtype)  # (B, T, K)
     init_counts = jnp.sum(oh[:, 0, :], axis=0)
     trans_counts = jnp.einsum("bti,btj->ij", oh[:, :-1, :], oh[:, 1:, :])

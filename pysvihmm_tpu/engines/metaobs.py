@@ -6,9 +6,9 @@ contiguous "meta-observation" blocks; each iteration samples a minibatch of
 blocks, fans the buffered local steps out over a ``multiprocessing.Pool``,
 reduces the workers' stats, and takes a natural-gradient step.
 
-TPU-native translation of the Pool.map -> reduce shape (SURVEY.md §3D note):
-the minibatch of blocks becomes a leading axis that is `vmap`-ped on one
-chip and sharded over the `data` mesh axis across chips
+Translation of the Pool.map -> reduce shape (SURVEY.md §3D note): the
+minibatch of blocks becomes a leading batch axis on one device and is
+sharded over the `data` mesh axis across devices
 (`shard_map(vmap(local_step))` + `psum` — see pysvihmm_tpu/parallel/), with
 bit-identical semantics to the single-device path.
 
@@ -53,9 +53,7 @@ def make_step(emission, cfg: MetaObsConfig, chain_len: int, method: str = "auto"
     num_blocks = T // Lm
     if M > num_blocks:
         raise ValueError("minibatch larger than number of meta-observations")
-    # shared window planner (messages.plan_window): multiple-of-8 rounding
-    # for the pallas paths, then "auto" resolution against the final W
-    method, W, b_left = messages.plan_window(method, Lm, b, T)
+    method, W, b_left = messages.plan_window(method, Lm, b)
 
     scale_trans = (T - 1.0) / (M * max(Lm - 1, 1))
     scale_emit = num_blocks / M

@@ -9,7 +9,7 @@ chain, and take a natural-gradient step with rho_t = (t + tau)^(-kappa).
 Also covers the reference's ``hmmbatchsgd.py`` (full-data natural-gradient
 VB) as the degenerate schedule on full batches — see engines/batch_sgd.py.
 
-TPU design notes:
+Design notes:
   * Subchain windows have *static* shape (B, L+2b): starts are sampled on
     device, windows gathered with `dynamic_slice`, and chain-edge clipping
     is expressed through a per-window 0/1 kept-mask — no dynamic shapes
@@ -112,17 +112,11 @@ def _resolve_rho(state: SVIState, cfg, target: HMMParams):
 def _gather_windows(obs: jax.Array, window_starts: jax.Array, W: int) -> jax.Array:
     """Static-shape gather of B windows obs[s : s+W] as ONE batched gather.
 
-    A vmapped `dynamic_slice` lowers to a SEQUENTIAL while-loop over the B
-    batched start indices on TPU — profiled at 2.7 ms of the 3.9 ms
-    production SVI step at B=1024 (71%, two 1024-iteration device loops;
-    bench_results/r3_tpu.jsonl). A `take` over precomputed (B, W) row
-    indices is ONE parallel gather (B*W single-row descriptors, ~0.6 ms —
-    row-granularity-bound but 4x+ faster than the loop). The tempting
-    third form — lax.gather with slice_sizes=(W, ...) and only B
-    descriptors of contiguous slices — lowers BACK to a sequential
-    device loop (multi-row slice gathers are not native) and was
-    measured slower; don't. Starts are pre-clipped to [0, T-W] by the
-    callers; clip mode keeps even a bad caller in-bounds rather than UB.
+    A vmapped `dynamic_slice` can lower to a SEQUENTIAL device loop over
+    the B batched start indices; a `take` over precomputed (B, W) row
+    indices is ONE parallel gather. Starts are pre-clipped to [0, T-W] by
+    the callers; clip mode keeps even a bad caller in-bounds rather than
+    UB.
     """
     idx = window_starts[:, None] + jnp.arange(W, dtype=window_starts.dtype)
     return jnp.take(obs, idx, axis=0, mode="clip")
@@ -135,9 +129,7 @@ def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto"):
     """
     B, L, b = cfg.batch_size, cfg.subchain_len, cfg.buffer
     T = chain_len
-    # shared window planner: pads W to a multiple of 8 for the pallas paths
-    # (extra steps = more buffer) and resolves "auto" against the final W
-    method, W, b_left = messages.plan_window(method, L, b, T)
+    method, W, b_left = messages.plan_window(method, L, b)
     if W > T:
         raise ValueError(f"window {W} longer than chain {T}")
     num_starts = T - L + 1
@@ -161,8 +153,7 @@ def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto"):
 
         # Shared windowed local step (engines/base.py): masked emission
         # stats, pair-gated batch-summed trans stats, per-window gamma at
-        # the kept-region offset, per-step log normalizers. On TPU this is
-        # the packed pallas path end to end (no whole-array layout copies).
+        # the kept-region offset, per-step log normalizers.
         emit_stats, trans_stats, gamma_at_start, log_c = windowed_local_step(
             params, emission, windows, maskf, offs, method
         )
@@ -353,8 +344,8 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
         idx = jax.random.randint(k_idx, (B,), 0, N)
         batch = obs[idx]
 
-        # unified batched local step (engines/base.py): packed pallas path
-        # on TPU (no layout copies), scan elsewhere; stats arrive summed
+        # unified batched local step (engines/base.py): the kernel on a
+        # CUDA device, scan elsewhere; stats arrive summed
         stats, _ = batch_local_step(params, emission, batch, method, need_gamma=False)
         emit_stats, init_stats, trans_stats = stats.emit, stats.init, stats.trans
 

@@ -1,7 +1,7 @@
 """Fault-tolerant training driver: periodic checkpoint + resume-on-restart.
 
 SURVEY.md §5 "failure detection / elastic recovery": the reference has none;
-pod-scale SVI needs restartable runs whose (t + tau)^(-kappa) schedule (and
+long SVI runs need restartable runs whose (t + tau)^(-kappa) schedule (and
 elastic-step state) survives preemption. This driver wraps any
 (state, prior, obs) -> (state, metrics) step function with:
 
@@ -57,8 +57,7 @@ def train(
 
     The NaN watchdog runs every ``watchdog_every`` steps (default: same
     cadence as ``log_every``) whether or not a logger is attached — a
-    logger-less pod run must abort on divergence, not proceed silently
-    (VERDICT r1 item 7).
+    logger-less run must abort on divergence, not proceed silently.
     """
     if checkpoint_dir and resume:
         latest = checkpoint.latest_step_path(checkpoint_dir)
@@ -114,7 +113,7 @@ def train_streamed(
     latest checkpoint consumes exactly the batches the uninterrupted run
     would have (tests/test_trainer.py::test_streamed_kill_resume_bitexact).
     This is the path the flagship 1M-sequence runner drives
-    (scripts/run_config5_scale.py — VERDICT r3 item 6).
+    (scripts/run_config5_scale.py).
     """
     if checkpoint_dir and resume:
         latest = checkpoint.latest_step_path(checkpoint_dir)

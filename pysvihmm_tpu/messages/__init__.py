@@ -2,11 +2,14 @@
 
 Three interchangeable implementations of the same FBResult contract:
   * ``scan``   — `lax.scan`, O(T K^2), sequential in T, vmap over sequences
-                 turns each step into a (B, K) @ (K, K) MXU matmul. The
-                 production path for batched sequences.
+                 turns each step into a (B, K) @ (K, K) matmul. The
+                 batched path off CUDA.
+  * ``pallas`` — the same recursion as two Triton kernels
+                 (messages/pallas_fb.py), one launch per sweep. The
+                 batched path on a CUDA device.
   * ``assoc``  — `lax.associative_scan` prefix/suffix matrix products,
-                 O(T K^3) flops, O(log T) depth. The production path for a
-                 single long chain on one chip.
+                 O(T K^3) flops, O(log T) depth. For a single long chain
+                 on one device.
   * ``grad``   — sufficient stats as gradients of the log-normalizer
                  (d logZ / d log_A = sum_t xi_t, d/d log_lik = gamma,
                  d/d log_pi = gamma_0). One code path, consistency oracle.
@@ -58,69 +61,46 @@ def e_step_grad(
     )
 
 
-def _pallas_time_tileable(T: int) -> bool:
-    """True when the fused kernels' tiler (pallas_fb._choose_tiles) can pick
-    a bounded (<= 32-step) MOSAIC-LEGAL time tile for this chain length:
-    either the whole axis is short (C = T, always tiling-legal), or T has a
-    multiple-of-8 divisor in [8, 32] (Mosaic requires the time tile to be a
-    multiple of 8 unless it spans the whole axis). Anything else (T = 70,
-    100, any prime) would force the kernels to statically unroll the entire
-    time axis (compile blow-up), so "auto" avoids pallas for such shapes."""
-    return T <= 32 or any(T % c == 0 for c in (8, 16, 24, 32))
+def on_cuda() -> bool:
+    """True when computations run on a CUDA device: the one backend that
+    compiles the Triton kernels of :mod:`.pallas_fb`.
+
+    Reads the configured default device first (a test harness may pin the
+    CPU while a GPU is present), then the default backend."""
+    dd = jax.config.jax_default_device
+    if dd is not None:
+        return getattr(dd, "platform", "") == "gpu"
+    return jax.default_backend() == "gpu"
 
 
-def resolve_method(method: str, time_len: int | None = None) -> str:
+METHODS = ("pallas", "scan", "assoc", "blocked", "grad")
+
+
+def resolve_method(method: str) -> str:
     """Resolve the user-facing ``method="auto"`` to a concrete E-step path.
 
-    On a TPU backend the fully-fused Pallas kernels ("pallas_fused":
-    likelihood matmul + FB + emission stats in-kernel) are the production
-    path (~2.1x the scan path at the benchmark shape — BASELINE.md);
-    everywhere else they would run under the slow Pallas interpreter, so
-    "auto" picks the `lax.scan` path. When ``time_len`` is given, "auto" also falls back
-    to scan for chain lengths the kernel tiler cannot tile (see
-    :func:`_pallas_time_tileable`) — engines that can pad their windows to a
-    multiple of 8 do so *before* this check (svi/metaobs ``make_step``).
-    Resolution happens at trace time (backend choice is static under jit);
-    an explicit method string always passes through untouched. The
-    PYSVIHMM_ESTEP_METHOD environment variable overrides what "auto"
-    resolves to on TPU (e.g. =pallas_fused to flip the production path
-    without code edits; the tileability fallback still applies).
+    "auto" is the forward-backward kernel ("pallas") on a CUDA device and
+    `lax.scan` everywhere else. Resolution happens at trace time (the
+    backend is static under jit); an explicit method in :data:`METHODS`
+    passes through, and "pallas" off CUDA then fails in
+    :func:`e_step_batched` unless the caller asks for the interpreter. Any
+    other name raises.
     """
     if method == "auto":
-        import os
-
-        from .pallas_fb import on_tpu
-
-        if not on_tpu():
-            return "scan"
-        if time_len is not None and not _pallas_time_tileable(time_len):
-            return "scan"
-        return os.environ.get("PYSVIHMM_ESTEP_METHOD", "pallas_fused")
+        return "pallas" if on_cuda() else "scan"
+    if method not in METHODS:
+        raise ValueError(f"unknown E-step method {method!r}: 'auto' or one of {METHODS}")
     return method
 
 
-def plan_window(method: str, keep_len: int, buffer: int, chain_len: int):
-    """Resolve the E-step method + window geometry for a windowed engine.
+def plan_window(method: str, keep_len: int, buffer: int):
+    """Resolve the E-step method and window geometry of a windowed engine.
 
-    Single source of truth for svi/metaobs/data-parallel ``make_step``: when
-    the resolved path is one of the Pallas kernels ("pallas" or
-    "pallas_fused"), round the window W = keep_len + 2*buffer up to a
-    multiple of 8 so the kernels' tiler gets a clean time tile (otherwise it
-    would statically unroll the window); the extra steps are pure additional
-    buffer, which only improves the kept-region boundary messages. The method
-    is then re-resolved against the final W — "auto" falls back to scan when
-    no bounded time tile exists (e.g. prime W == T, un-paddable).
-
-    Returns (resolved_method, W, b_left) where b_left is the buffer length
-    on the left side of the kept region after padding.
+    Single source of truth for svi/metaobs/data-parallel ``make_step``.
+    Returns (resolved_method, W, b_left): the window W = keep_len +
+    2*buffer, with the kept region ``b_left`` steps in from its left edge.
     """
-    W = keep_len + 2 * buffer
-    b_left = buffer
-    if resolve_method(method) in ("pallas", "pallas_fused") and W < chain_len:
-        pad = min(-W % 8, chain_len - W)
-        b_left += pad // 2
-        W += pad
-    return resolve_method(method, time_len=W), W, b_left
+    return resolve_method(method), keep_len + 2 * buffer, buffer
 
 
 def e_step_batched(
@@ -129,32 +109,28 @@ def e_step_batched(
     log_lik: jax.Array,  # (B, T, K)
     weights: jax.Array | None = None,  # (B, T) kept-mask
     method: str = "auto",
+    interpret: bool = False,
 ) -> FBResult:
     """Batched E-step over (B, T, K) likelihoods — the engines' entry point.
 
     Contract: gamma (B, T, K), log_z (B,), log_c (B, T), init_stats (B, K)
     per sequence; trans_stats ALWAYS summed over the batch, shape (K, K)
-    (what every global update consumes). method="pallas" runs the fused
-    TPU kernels (interpreted off-TPU); "auto" (default) resolves to the
-    kernels on TPU and scan elsewhere ("pallas_fused" downgrades to
-    "pallas" here — likelihoods are already materialized at this entry
-    point); other methods vmap :func:`e_step`.
+    (what every global update consumes). method="pallas" runs the
+    forward-backward kernels (messages/pallas_fb.py), which compile only
+    for a CUDA device; ``interpret=True`` runs them in the Pallas
+    interpreter instead (tests). Other methods vmap :func:`e_step`.
     """
-    method = resolve_method(method, time_len=log_lik.shape[1])
-    if method == "pallas_fused":
-        # the fully-fused kernels need emission params to build likelihoods
-        # in-kernel; here likelihoods are already materialized, so the
-        # split pallas path is the fast equivalent (engines/base.py fuses).
-        method = "pallas"
+    method = resolve_method(method)
     if method == "pallas":
-        from .pallas_fb import on_tpu, pallas_forward_backward_batched
+        if not (interpret or on_cuda()):
+            raise ValueError(
+                'method="pallas" needs a CUDA device (or interpret=True); '
+                f"the default backend is {jax.default_backend()!r}"
+            )
+        from .pallas_fb import pallas_forward_backward_batched
 
         return pallas_forward_backward_batched(
-            log_pi,
-            log_A,
-            log_lik,
-            weights=weights,
-            interpret=not on_tpu(),
+            log_pi, log_A, log_lik, weights=weights, interpret=interpret
         )
     if weights is None:
         fb = jax.vmap(lambda l: e_step(log_pi, log_A, l, method=method))(log_lik)
@@ -205,6 +181,7 @@ __all__ = [
     "e_step",
     "e_step_batched",
     "e_step_grad",
+    "on_cuda",
     "plan_window",
     "resolve_method",
 ]

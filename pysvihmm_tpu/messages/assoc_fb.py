@@ -4,16 +4,16 @@ Temporal parallelization of HMM smoothing (Särkkä & García-Fernández,
 arXiv:2102.05743 — PAPERS.md): the forward recursion is a product of
 per-timestep K x K matrices M_t[i, j] = A~[i, j] * lik_t[j], so prefix
 products give all alpha_t in O(log T) depth; suffix products give beta_t.
-Each associative combine is a batched (K, K) @ (K, K) matmul — MXU work —
-so a single long chain saturates the chip instead of serializing T steps.
-This is the TPU-native answer to the reference's Cython sequential loop for
+Each associative combine is a batched (K, K) @ (K, K) matmul, so a single
+long chain fills the device instead of serializing T steps. This is the
+parallel answer to the reference's Cython sequential loop for
 the single-long-chain regime (SURVEY.md §2.3, §5 "long-context").
 
 Representation: (M, s) ≡ exp(s) * M with M kept max-normalized so products
 neither overflow nor underflow at T = 100k+.
 
 Trade-off vs scan_fb: O(T K^3) flops (vs O(T K^2)) but O(log T) depth and
-full MXU utilization; stores T x K x K prefix matrices, so for large T use
+full matmul utilization; stores T x K x K prefix matrices, so for large T use
 :func:`pysvihmm_tpu.messages.blocked.blocked_e_step` which runs this inside
 fixed-size time tiles.
 """

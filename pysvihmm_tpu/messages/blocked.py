@@ -2,10 +2,10 @@
 
 Hybrid of scan_fb and assoc_fb (SURVEY.md §5 "long-context"): the chain is
 cut into fixed-size time tiles; *within* a tile the per-step K x K matrices
-are combined with `associative_scan` (log-depth, batched MXU matmuls) while
+are combined with `associative_scan` (log-depth, batched matmuls) while
 a `lax.scan` carries the boundary messages *across* tiles. Peak memory is
 O(block_size * K^2 + T * K) regardless of T, so K = 64, T = 100k chains run
-with MXU-sized work per step instead of 100k sequential (1, K) matvecs.
+with matmul-sized work per step instead of 100k sequential (1, K) matvecs.
 
 Transitions are padded to a whole number of tiles with identity matrices
 (exactly neutral for products and log-normalizers), so any T works.
@@ -152,17 +152,16 @@ def _block_products(A_tilde, lik_tr, valid, n_blocks, S, chunk_blocks=64):
     a padded pair is (M, I) or (I, I), and (A~ * l1) @ I-with-l2=1 is
     wrong — so instead invalid leaves select the identity matrix
     explicitly. Dropped renorm scales cancel in the normalized boundary
-    messages (the only consumer). Products run at DEFAULT matmul
-    precision: they steer boundary SEEDS only, and a seed misalignment
-    eps contributes ~eps nats per block to log Z (analysis in
-    forward_backward_blocked_twophase), far below f32's own resolution
-    at these magnitudes; under x64 DEFAULT is exact f64, so oracle-parity
-    tests are unaffected.
+    messages (the only consumer). Products run at full f32 (HIGHEST):
+    they steer boundary SEEDS only, and a seed misalignment eps costs ~eps
+    nats of log Z per block (analysis in forward_backward_blocked_twophase),
+    but DEFAULT is TF32 on the GPU (eps ~ 5e-4 per product), which at
+    T = 10^7 adds tens of nats for no measured gain.
     """
     K = A_tilde.shape[0]
     dtype = lik_tr.dtype
     eye = jnp.eye(K, dtype=dtype)
-    prec = lax.Precision.DEFAULT
+    prec = lax.Precision.HIGHEST
 
     tiny = jnp.finfo(dtype).tiny
 
@@ -171,7 +170,7 @@ def _block_products(A_tilde, lik_tr, valid, n_blocks, S, chunk_blocks=64):
                        preferred_element_type=dtype)
         # tiny floor: a hard-zero likelihood row (-inf log_lik) can drive a
         # block product to all-zeros; 0/0 here would turn a clean -inf
-        # log_z into NaN (ADVICE r4), while 0/tiny propagates zeros
+        # log_z into NaN, while 0/tiny propagates zeros
         return r / jnp.maximum(jnp.max(r, axis=(1, 2), keepdims=True), tiny)
 
     def chunk_products(lik_blk, val_blk):
@@ -224,8 +223,7 @@ def forward_backward_blocked_twophase(
     :func:`forward_backward_blocked_stream`, but restructured to kill that
     path's dominant cost: `lax.associative_scan` materializes full
     (S, K, K) prefix-product arrays at EVERY tree level (~2 log2(S)
-    passes of S*K^2 floats per block — measured on chip: the assoc-scan
-    tier runs T=10M at 1.23M steps/s and collapses beyond S=512). Here,
+    passes of S*K^2 floats per block, and it collapses beyond S=512). Here,
     the sequential-vs-parallel split follows messages/time_sharded.py's
     three-phase schedule, applied single-device at BLOCK granularity:
 
@@ -235,7 +233,7 @@ def forward_backward_blocked_twophase(
          tiny steps): exact filtered alpha at every block start, exact
          beta seed at every block end;
       3. seeded VECTOR sweeps inside all blocks at once, vmapped ACROSS
-         blocks: each in-block step is one (n_blocks, K) @ (K, K) MXU
+         blocks: each in-block step is one (n_blocks, K) @ (K, K)
          matmul, so the sequential depth is S (not T) and the rows axis
          carries n_blocks sequences of work. Per-step log normalizers
          seeded by the TRUE filtered alpha reproduce the global scaling
@@ -243,11 +241,10 @@ def forward_backward_blocked_twophase(
          the backward sweep fuses gamma, pairwise stats, and the
          emission-stat reduction exactly as the assoc tier does.
 
-    Phase-1 products run at DEFAULT matmul precision: a boundary-seed
-    misalignment eps costs ~eps nats of log Z per block (the seeded
-    scan's normalizers telescope within a block), so even 1e-3-grade
-    products contribute < f32's own rounding of log Z; under x64 they
-    are exact f64 and the f64 oracle-parity suite pins the math.
+    Phase-1 products run at full f32: a boundary-seed misalignment eps
+    costs ~eps nats of log Z per block (the seeded scan's normalizers
+    telescope within a block); under x64 they are exact f64 and the f64
+    oracle-parity suite pins the math.
 
     Per-step kept-masks are not supported (exact full-chain E-steps only,
     as for the assoc tier).

@@ -1,69 +1,50 @@
-"""Pallas TPU kernels: fully-fused, lane-packed batched forward-backward.
+"""Batched forward-backward as two Pallas kernels for NVIDIA GPUs (Triton).
 
-The TPU-native replacement for the reference's Cython E-step hot loop
-(SURVEY.md §2.3: "the centerpiece"). XLA's `lax.scan` pays per-step
-scheduling overhead and round-trips every intermediate through HBM; at
-K=64/T=1k the whole E-step is bound by HBM traffic and by the *latency* of
-the sequential recursion, so the kernel design attacks both.
+The E-step's sequential core is 2T dependent (B, K) @ (K, K) steps. Under
+`lax.scan` every step is one XLA while-loop iteration with its own kernel
+launches, so per-step launch latency, not FLOPs or bytes, bounds it. Here
+each recursion runs inside ONE launch:
 
-DRAM traffic — everything is fused into two kernels:
-  * Forward kernel: streams likelihood tiles HBM->VMEM, carries the
-    (ROWS, P*K) alpha messages in VMEM scratch across time tiles, and emits
-    ONLY the (raw) alpha array. Per-sequence scales are recovered OUTSIDE
-    by one XLA segmented reduce over alpha (no `u = alpha @ A` einsum, no
-    in-kernel per-sequence bookkeeping).
-  * Backward kernel: re-reads lik + alpha tiles and, per time step, fuses
-    the beta recursion with (a) the smoothed marginal gamma_t, written out
-    directly, and (b) the summed pairwise-marginal accumulation for the
-    transition stats — one MXU matmul into a VMEM-resident accumulator that
-    only hits HBM once at the end. beta, lik*beta and the xi normalizers
-    never exist in HBM.
-  Total HBM traffic is lik(2R) + alpha(W+2R) + gamma(W): ~6 T*B*K floats,
-  vs ~3-4x that for an unfused kernel + XLA einsum post-processing.
+  * The grid runs over blocks of ``block_b`` sequences only; a `fori_loop`
+    over T runs inside the block. Hopper runs blocks in parallel and in no
+    order, so nothing is carried from one grid step to the next.
+  * alpha and beta stay in registers. A~ = exp(E[log A]) is loaded once per
+    block.
+  * The forward renormalizes PER SEQUENCE, EVERY step (numerics, not
+    hardware): the stored alpha_hat_t sums to 1, so f32 only ever holds one
+    step's decay. Anything laxer underflows within a few hundred steps at
+    early-training parameters.
+  * The backward fuses gamma and the summed pairwise marginals into the
+    beta sweep. Each block writes its own (K, K) sum-of-xi partial and XLA
+    sums the partials.
 
-Sequential-chain latency — measured on v5e, a dependent (ROWS, W) @ (W, W)
-recursion costs ~(fixed + c*ROWS) per step for any W <= 128 (the MXU is
-128 wide; a K=64 operand wastes half the array in both dimensions), and no
-reduction may sit on the critical path:
-  * LANE PACKING: P = 128/K sequences are packed side by side into one
-    128-lane row with the block-diagonal transition matrix kron(I_P, A~) —
-    for K=64 this HALVES the row count (the latency driver) at identical
-    math (the off-diagonal blocks are exactly zero).
-  * The forward renormalizes PER SEQUENCE, EVERY step — stored alpha_t is
-    alpha_hat_t * c_t (exactly one step of per-sequence scale), so the f32
-    range only ever holds a single step's decay. Anything laxer is unsound,
-    found the hard way: a full-row renorm lets the scale imbalance between
-    the P lane-packed sequences grow without bound (the smaller sequence
-    underflows within a few hundred steps of real SVI training), and any
-    renorm period > 1 multiplies per-step likelihood decays that routinely
-    reach e^-60 at early-training params. The per-segment reduce + rescale
-    is folded into the LIKELIHOOD operand (alpha/c @ A == (alpha @ A)/c for
-    a per-sequence scalar and block-diagonal A), so it overlaps the chain's
-    MXU matmul instead of extending it — measured cost on the K=64/T=1k
-    headline bench: ~2%.
-  * The backward carries beta'_t = beta_hat_t / c_t, where beta_hat is the
-    Rabiner-scaled message (normalized by the forward scaling constants).
-    Three identities make the scale algebra in-kernel-resident:
-      - gamma_t = alpha_raw_t * beta'_t EXACTLY (c_t cancels; the product
-        is the normalized smoothed marginal) — a pure mul. In f32 the
-        cancellation drifts by a per-sequence common-mode scalar, so the
-        kernel renormalizes gamma_t (and the stats-side d_t) by its
-        per-sequence row sum — a VPU reduce off the beta chain — which
-        recovers ~1e-6 marginals;
-      - the xi-sum contribution is alpha_raw_{t-1}^T @ d_t with
-        d_t = lik_t * beta'_t / c_{t-1}; the 1/c_{t-1} replay factor is the
-        per-sequence inverse sum of the RESIDENT alpha block (off the beta
-        chain), so no replay/seed arrays cross the kernel boundary at all —
-        at tile edges, where alpha_{t-1} lives in the next-visited tile,
-        the factor commutes through the block-diagonal contractions and is
-        applied at consumption (bcarry/dcarry hand over UNREPLAYED values);
-      - the chain step is beta'_{t-1} = d_t @ A~^T — mul -> matmul, with
-        NO reduce and NO lane crossing on the critical path.
+Two launches, not one: the backward reads alpha_hat written by other
+threads of the forward, and only a kernel boundary orders those accesses.
 
-The pallas path returns trans_stats ALREADY SUMMED over sequences, shape
-(K, K) — exactly what the engines' global updates consume.
+Math (identical to messages/scan_fb.py::forward_backward, Rabiner scaling):
 
-All kernels run under `interpret=True` on CPU for exact-agreement tests.
+    alpha_hat_t = (alpha_hat_{t-1} @ A~) * lik_t / c_t
+    braw_{t-1}  = A~ @ (lik_t * beta_t),  beta_{t-1} = braw_{t-1} / sum(.)
+    n_t         = sum(alpha_hat_{t-1} * braw_{t-1})
+    gamma_{t-1} = alpha_hat_{t-1} * braw_{t-1} / n_t
+    sum xi      = A~ * sum_t g_t outer(alpha_hat_{t-1} / n_t, lik_t * beta_t)
+
+with lik_t = exp(ll_t - max_k ll_tk) and g_t = w_{t-1} w_t the pair gate of
+SVI's buffer discard.
+
+Shapes are padded to what Triton's blocks need: K to a power of two >= 16
+(padded states have zero initial and transition mass, so they carry no
+probability), B to a multiple of ``block_b`` (padded rows have zero pair
+gates and are sliced off, so they add nothing to any statistic).
+
+Every dot names its precision (``precision``): on the Triton route
+``lax.Precision.HIGHEST`` lowers to IEEE f32 FMA, while None, DEFAULT and
+HIGH lower to TF32, whose 2^-11 rounding compounds along the chain.
+``lax.DotAlgorithmPreset.TF32_TF32_F32_X3`` (tensor cores) measured no more
+accurate and slower at K=64 on an H100 (5.07 vs 4.04 ms).
+
+``interpret=True`` runs the same kernels in the Pallas interpreter (CPU
+tests); without it, a backend other than CUDA cannot compile them.
 """
 
 from __future__ import annotations
@@ -74,1231 +55,176 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .scan_fb import FBResult, _normalize_loglik
-
-LANES = 128  # MXU/VPU lane width
-SUM_FLOOR = 1e-38  # per-sequence sum floor: a fully-underflowed window
-# degrades to zero stats instead of poisoning the batch with NaN
-
-
-def on_tpu() -> bool:
-    """True when computations will actually hit a TPU (Mosaic) backend.
-
-    `jax.default_backend()` alone is wrong under an explicit CPU default
-    device (the test harness pins CPU while a TPU plugin is registered).
-    Whitelist platform == "tpu": any other plugin backend (e.g. METAL)
-    cannot lower Mosaic kernels and must not be routed to them.
-    """
-    dd = jax.config.jax_default_device
-    if dd is not None:
-        return getattr(dd, "platform", "") == "tpu"
-    return jax.default_backend() == "tpu"
-
-
-def _seg_shift_exp(l, K):
-    """exp(l - per-sequence max), (..., PK) -> (..., PK), all VPU off-chain.
-
-    The max shift runs per K-segment (per packed sequence); computing it
-    here means the shifted/exp'd T*B*K array never exists in HBM and no
-    per-sequence shift array is ever materialized (any (..., P)-shaped
-    array is lane-padded 128/P-fold on TPU — a silent 64x traffic tax at
-    P = 2)."""
-    P = l.shape[-1] // K
-    if P == 1:
-        return jnp.exp(l - jnp.max(l, axis=-1, keepdims=True))
-    mx = [
-        jnp.max(l[..., p * K : (p + 1) * K], axis=-1, keepdims=True)
-        for p in range(P)
-    ]
-    return jnp.exp(
-        l
-        - jnp.concatenate(
-            [jnp.broadcast_to(m_, l.shape[:-1] + (K,)) for m_ in mx], axis=-1
-        )
-    )
-
-
-def _seg_bcast_inv(x, K):
-    """Per-sequence inverse row sums, lane-broadcast back to x's shape.
-
-    The single scale primitive of both kernels: 1 / max(sum over each
-    K-lane segment, SUM_FLOOR), broadcast across that segment's lanes. The
-    floor turns a fully-underflowed sequence into zero stats instead of
-    0/0 NaN. All VPU, any rank (the backward kernels batch it over whole
-    (C, R, PK) tiles in their prologues); every call site keeps it off the
-    recursion chain."""
-    P = x.shape[-1] // K
-    if P == 1:
-        return 1.0 / jnp.maximum(jnp.sum(x, axis=-1, keepdims=True), SUM_FLOOR)
-    return jnp.concatenate(
-        [
-            jnp.broadcast_to(
-                1.0
-                / jnp.maximum(
-                    jnp.sum(x[..., p * K : (p + 1) * K], axis=-1, keepdims=True),
-                    SUM_FLOOR,
-                ),
-                x.shape[:-1] + (K,),
-            )
-            for p in range(P)
-        ],
-        axis=-1,
-    )
-
-
-_PREC_NAMES = {
-    "default": lax.Precision.DEFAULT,
-    "highest": lax.Precision.HIGHEST,
-    "bf16x3": "bf16x3",
-}
-
-
-def kernel_precisions():
-    """Resolve the kernels' (chain/pairwise, likelihood, emission-stat)
-    precision specs from env knobs; the PRODUCTION DEFAULT is "bf16x3"
-    (3-pass bf16-split HIGH emulation, :func:`_kdot`) for all three.
-
-    PYSVIHMM_KERNEL_PREC — the chain recursions + pairwise-stat outer
-    products; PYSVIHMM_LL_PREC — the fused likelihood matmuls;
-    PYSVIHMM_STATS_PREC — the emission-stat contraction. Values:
-    "bf16x3" (the default), "highest" (6-pass f32 — restores exact-f32
-    kernels for debugging/validation), "default" (1-pass bf16 — known to
-    break NIW PSD margins for stats; exposed for measurement only).
-
-    Measured basis for the default (K=64/T=1k/B=1024 headline, same chip
-    A/B, bench_results/r3_tpu.jsonl): all-bf16x3 107.6k seq/s vs
-    all-HIGHEST 89.8k (+20%). Per-tier error vs HIGHEST (max |d|/||ref||_inf
-    over all E-step stat leaves, interpret mode): chain tier 4e-6, stat
-    tier 2e-6, likelihood tier 2e-4 (one bf16-split injected in the
-    log-likelihood, amplified once through exp). Full VB fits land on the
-    same optimum (end-ELBO rel diff 1.7e-4, Hamming 0.0); per-iteration
-    f32 ELBO evaluation gains ~1e-4-relative noise from the likelihood
-    tier (tests/test_precision.py::TestKernelPrecisionKnobs). The exact
-    paths (scan, and the kernel APIs' HIGHEST signature defaults) are
-    untouched. Read at trace time by the engine callers (the specs are
-    static jit args), NOT inside the kernels.
-    """
-    import os
-
-    def get(name):
-        v = os.environ.get(name, "").lower()
-        if v and v not in _PREC_NAMES:
-            raise ValueError(f"{name} must be one of {sorted(_PREC_NAMES)}")
-        return _PREC_NAMES.get(v, "bf16x3")
-
-    return (
-        get("PYSVIHMM_KERNEL_PREC"),
-        get("PYSVIHMM_LL_PREC"),
-        get("PYSVIHMM_STATS_PREC"),
-    )
-
-
-def _alpha_store_dtype(emit_gamma: bool = True):
-    """Storage dtype for the forward kernel's (T, R, PK) alpha output — the
-    E-step's second-largest HBM stream (written once, re-read by the
-    backward kernel). bf16 halves that traffic: measured +4-6% at the
-    K=64/T=1k headline (f32 131-140k vs bf16 141.8-142.7k, r4_tpu.jsonl).
-
-    Unlike bf16-STORED FEATURES (rejected: value-rounding y (x) y breaks
-    the NIW PSD margin — engines/base.py::_feats_store_dtype), rounding
-    alpha is structurally PSD-safe: the rounded gamma acts as a slightly
-    perturbed NONNEGATIVE weight multiplying the EXACT f32 features in one
-    contraction, so the emission moment matrix remains an exact weighted
-    sum of [1, y, y (x) y] outer features — PSD by construction. The
-    scale algebra stays consistent because log_c and the backward replay
-    factors are BOTH derived from the same stored (rounded) alpha, and the
-    per-sequence common-mode drift is removed by the in-kernel gamma/d
-    renormalization. Residual per-entry error ~4e-3 on gamma/xi — fine
-    for TRAINING statistics (Dirichlet counts, emission stat weights;
-    windowed subchain SVI at K=64/D=8 reaches Hamming 0.0 on chip), but
-    2000x looser than the f32 path's 1.9e-6 smoothed marginals.
-
-    Default policy: bf16 on TPU for gamma-FREE calls (emit_gamma=False —
-    pure training steps, where gamma never surfaces and only the
-    perturbed-weight stats remain); f32 whenever gamma is emitted
-    (decode / user-facing marginals keep their advertised accuracy) and
-    everywhere off-TPU. PYSVIHMM_BF16_ALPHA=1/0 forces either way.
-    """
-    import os
-
-    v = os.environ.get("PYSVIHMM_BF16_ALPHA", "").strip().lower()
-    if v in ("0", "false", "off"):
-        return jnp.float32
-    if v:
-        return jnp.bfloat16
-    return jnp.bfloat16 if (not emit_gamma and on_tpu()) else jnp.float32
-
-
-def _split_bf16(x):
-    """f32 -> (hi, lo) bf16 pair with hi + lo == x to ~2^-16 relative."""
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _kdot(a, b, dims, prec, b_split=None):
-    """In-kernel dot_general with an EXTENDED precision spec.
-
-    prec is either a lax.Precision (passed through to Mosaic — only
-    DEFAULT and HIGHEST lower) or the string "bf16x3": a 3-pass bf16-split
-    emulation of XLA's HIGH (a = ah+al, b = bh+bl; ah@bh + ah@bl + al@bh;
-    ~2^-21 one-shot relative error) at HALF the MXU passes of HIGHEST
-    (f32 = 6 bf16 passes). utils/precision.py's policy wants exactly this
-    tier for the one-shot bulk contractions (likelihood matmul, stat
-    sums); Mosaic exposes no native HIGH, hence the emulation.
-
-    b_split: optional pre-split (b_hi, b_lo) for loop-invariant right
-    operands (the transition matrix in the chain recursions, the feature
-    weights): hoists 2 VPU casts out of the loop.
-    """
-    if prec != "bf16x3":
-        if a.dtype == jnp.bfloat16 and b.dtype == jnp.bfloat16:
-            # Mosaic rejects bf16 operands under an fp32 contract precision
-            prec = lax.Precision.DEFAULT
-        elif a.dtype == jnp.bfloat16 or b.dtype == jnp.bfloat16:
-            # mixed-dtype dots don't lower on Mosaic; upcasting the bf16
-            # operand is exact and preserves the requested precision
-            a, b = a.astype(jnp.float32), b.astype(jnp.float32)
-        return lax.dot_general(
-            a, b, dims, preferred_element_type=jnp.float32, precision=prec
-        )
-    def d(x, y):
-        # each pass is a NATIVE bf16 MXU matmul: contract precision must
-        # be DEFAULT — Mosaic rejects bf16 operands under an fp32
-        # contract_precision ("Bad lhs type")
-        return lax.dot_general(
-            x, y, dims, preferred_element_type=jnp.float32,
-            precision=lax.Precision.DEFAULT,
-        )
-    # An operand stored bf16 (PYSVIHMM_BF16_FEATS) has a zero lo part:
-    # skip its all-zero passes instead of splitting it redundantly.
-    if a.dtype == jnp.bfloat16:
-        bh, bl = _split_bf16(b) if b_split is None else b_split
-        return d(a, bh) + d(a, bl)
-    ah, al = _split_bf16(a)
-    if b.dtype == jnp.bfloat16:
-        return d(ah, b) + d(al, b)
-    bh, bl = _split_bf16(b) if b_split is None else b_split
-    return d(ah, bh) + d(ah, bl) + d(al, bh)
-
-
-def _build_feats(o2, D, P, kind):
-    """Lane-packed observations (N, P*D) -> packed ELL features (N, P*F),
-    built in VMEM/registers in-kernel.
-
-    The HBM feature array is the fused E-step's dominant traffic at NIW
-    F = 1 + D + D(D+1)/2 (45 floats/obs at D=8 vs 8 for the observation): built
-    by XLA it is written once and re-read by BOTH kernels (~3x F/D data
-    blowup on the wire). Building it here means only the raw observations
-    cross HBM. kind: "niw" -> [1, y, triu(y (x) y)]; "nig" -> [1, y, y*y]."""
-    N = o2.shape[0]
-    ones = jnp.ones((N, 1), jnp.float32)
-    parts = []
-    for p in range(P):
-        y = o2[:, p * D : (p + 1) * D]
-        if kind == "niw":
-            quad = [y[:, d : d + 1] * y[:, d:] for d in range(D)]
-        elif kind == "nig":
-            quad = [y * y]
-        else:
-            raise ValueError(f"unknown in-kernel feature kind: {kind}")
-        parts += [ones, y] + quad
-    return jnp.concatenate(parts, axis=-1)
-
-
-def _emit_scales(alpha_ref, s_ref, K, prec):
-    """Per-tile epilogue: per-sequence sums of the stored alpha, emitted
-    transposed-dense into the (P, C, tile_r) scale block.
-
-    Two shapes of the same reduction: for 128-aligned row tiles, ONE
-    (P, PK) x (PK, C*tile_r) selector matmul (MXU, off the chain) whose
-    (P, C, tile_r) reshape only splits the lane axis at 128-multiples —
-    Mosaic-legal. For narrow tiles (every small-batch SVI window) that
-    reshape is an unsupported lane-splitting shape cast (died in
-    infer-vector-layout on v5e), so use per-segment VPU lane reduces that
-    produce the (C, tile_r) layout directly."""
-    C, tile_r, PK = alpha_ref.shape
-    P = PK // K
-    if tile_r % 128 == 0:
-        sel = (
-            jax.lax.broadcasted_iota(jnp.int32, (P, PK), 1) // K
-            == jax.lax.broadcasted_iota(jnp.int32, (P, PK), 0)
-        ).astype(jnp.float32)
-        a2 = alpha_ref[...].reshape(C * tile_r, PK)
-        s2 = _kdot(sel, a2, (((1,), (1,)), ((), ())), prec)
-        s_ref[...] = s2.reshape(P, C, tile_r)
-    else:
-        for p in range(P):
-            s_ref[p] = jnp.sum(
-                alpha_ref[:, :, p * K : (p + 1) * K].astype(jnp.float32), axis=-1
-            )
-
-
-def _fwd_kernel(pi_ref, A_ref, lik_ref, alpha_ref, s_ref, sh_ref, carry, *, C, K, log_in, prec):
-    """One time-tile of the forward recursion, whole row tile at once.
-
-    pi_ref:   (1, PK)           pi~ tiled P times
-    A_ref:    (PK, PK)          kron(I_P, A~)
-    lik_ref:  (C, R, PK)        RAW log-likelihoods, time-major packed
-    alpha_ref:(C, R, PK)        out: RAW forward messages alpha_hat_t * c_t
-                                (per-sequence renorm EVERY step — see the
-                                module docstring for why nothing laxer is
-                                numerically sound)
-    s_ref:    (P, C, R)         out: per-sequence sums of stored alpha (=
-                                the per-step scales c_t), TRANSPOSED so the
-                                minor dim is the wide row axis — a (T,R,P)
-                                layout would be lane-padded 64x
-    sh_ref:   (P, C, R)         out: the per-sequence max shifts the exp
-                                ran under (re-derived post-loop, batched)
-    carry:    (R, PK)           VMEM scratch persisting across time tiles
-                                (per-sequence-normalized at tile boundaries)
-    """
-    j = pl.program_id(1)
-    PK = A_ref.shape[0]
-    P = PK // K
-
-    def lik(p):
-        # likelihoods arrive RAW in LOG space; the per-sequence max shift
-        # and the exp run here on the VPU (off the chain)
-        return _seg_shift_exp(lik_ref[p], K) if log_in else lik_ref[p]
-
-    A_split = _split_bf16(A_ref[:, :]) if prec == "bf16x3" else None
-
-    def raw_step(a_prev, lik_t):
-        return (
-            _kdot(a_prev, A_ref[:, :], (((1,), (0,)), ((), ())), prec,
-                  b_split=A_split)
-            * lik_t
-        )
-
-    # p = 0: alpha_0 = pi~ * lik_0 on the first tile, else one step off the
-    # normalized carry; both arms are cheap and the select is branch-free.
-    lik0 = lik(0)
-    a = jnp.where(
-        j == 0,
-        pi_ref[0, :][None, :] * lik0,
-        raw_step(carry[:, :], lik0),
-    )
-    alpha_ref[0] = a.astype(alpha_ref.dtype)
-    # Per-sequence renorm every step, folded into the LIKELIHOOD operand:
-    # (a * inv) @ A == (a @ A) * inv for a per-sequence scalar and
-    # block-diagonal A, so the segment reduce + broadcast runs in parallel
-    # with the step's MXU matmul instead of extending the chain.
-    inv = _seg_bcast_inv(a, K)
-    for p in range(1, C):
-        a = raw_step(a, lik(p) * inv)
-        alpha_ref[p] = a.astype(alpha_ref.dtype)
-        inv = _seg_bcast_inv(a, K)
-    carry[:, :] = a * inv
-
-    # --- batched per-tile epilogue (off the chain) ---
-    _emit_scales(alpha_ref, s_ref, K, prec)
-    if log_in:
-        # the shifts the exp ran under, batched (bit-identical re-derive)
-        for p in range(P):
-            sh_ref[p] = jnp.max(lik_ref[:, :, p * K : (p + 1) * K], axis=-1)
-    else:
-        sh_ref[...] = jnp.zeros_like(sh_ref)
-
-
-def _bwd_kernel(
-    A_ref, lik_ref, alpha_ref, *rest, C, K, gated, log_in, prec
-):
-    """Reverse-time tile fusing beta recursion + gamma + summed pair stats.
-
-    Walks t = C-1 .. 0 within the tile (tiles arrive in reverse time
-    order). Every 1/c_{t-1} replay factor of the forward's per-step renorm
-    is the per-sequence inverse sum of an ALPHA block: for in-tile steps
-    that block is resident; at the tile boundary (c = 0) alpha_{t-1} lives
-    in the next-visited (earlier-time) tile, so bcarry/dcarry hand over
-    UNREPLAYED values and the factor — a per-sequence scalar that commutes
-    through the block-diagonal contractions — is applied at consumption.
-    The beta' seed at t = T-1 (beta_hat = 1, so beta' = 1/c_{T-1}) is
-    likewise derived from the resident last alpha block: no scale arrays
-    cross the kernel boundary at all. acc_ref is a (PK, PK) output block
-    revisited by every grid cell: it stays resident in VMEM for the whole
-    sweep, accumulating sum outer(alpha_raw, d); only its P diagonal K x K
-    blocks are meaningful (the caller discards the rest against the exact
-    zeros of kron(I_P, A~)). Scratches: bcarry/dcarry (tile handover),
-    dstash (stats-side d per step), elbuf (the batched prologue's exp'd
-    likelihoods with replay factors pre-folded).
-    """
-    if gated:
-        g_ref, gamma_ref, acc_ref, bcarry, dcarry, dstash, elbuf = rest
-    else:
-        g_ref, (gamma_ref, acc_ref, bcarry, dcarry, dstash, elbuf) = None, rest
-    P = A_ref.shape[0] // K
-    PK_dim = A_ref.shape[0]
-
-    def gate(x, c):  # lane-broadcast the (R, P) pair gate to (R, PK)
-        gc = g_ref[c]
-        if P == 1:
-            return x * gc
-        return x * jnp.concatenate(
-            [jnp.broadcast_to(gc[:, p : p + 1], (gc.shape[0], K)) for p in range(P)],
-            axis=-1,
-        )
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when((i == 0) & (j == 0))
-    def _():
-        acc_ref[:, :] = jnp.zeros_like(acc_ref)
-
-    A_split = _split_bf16(A_ref[:, :]) if prec == "bf16x3" else None
-
-    def outer_acc(a, d):
-        # sum_r outer(a[r], d[r]) as a dim-0 contraction: no transposed
-        # operand is ever materialized (MXU feeds it natively)
-        return _kdot(a, d, (((0,), (0,)), ((), ())), prec)
-
-    def chain_step(d):
-        # d @ A^T as a dim-1/dim-1 contraction: no transpose materialized
-        return _kdot(d, A_ref[:, :], (((1,), (1,)), ((), ())), prec,
-                     b_split=A_split)
-
-    # Batched prologue: exp-shift the whole tile's likelihoods (bit-
-    # identical to the forward's per-step shifts — max is exact, so
-    # gamma = alpha * beta' holds) and fold in the per-step renorm replay
-    # factors 1/c_{t-1}, which are alpha-only — one vectorized VPU pass
-    # instead of C segmented reduces serialized with the loop. Step c = 0's
-    # factor lives in the next-visited tile; applied at consumption below.
-    el = _seg_shift_exp(lik_ref[...], K) if log_in else lik_ref[...]
-    if C > 1:
-        r_prev = _seg_bcast_inv(alpha_ref[0 : C - 1].astype(jnp.float32), K)  # (..., PK) or (..., 1)
-        el = el * jnp.concatenate(
-            [jnp.ones((1,) + r_prev.shape[1:], jnp.float32), r_prev], axis=0
-        )
-    elbuf[...] = el
-
-    # 1/c of this tile's LAST step: seeds beta' at j = 0 (beta_hat = 1)
-    # and replays the later tile's handed-over beta / d_0 at j != 0
-    inv_last = _seg_bcast_inv(alpha_ref[C - 1].astype(jnp.float32), K)
-
-    @pl.when(j != 0)
-    def _():
-        # pairing deferred from the previous (later-in-time) tile: its d_0
-        # arrived unreplayed, so pair it against the NORMALIZED alpha_hat
-        acc_ref[:, :] += outer_acc(alpha_ref[C - 1].astype(jnp.float32) * inv_last, dcarry[:, :])
-
-    beta = jnp.where(j == 0, jnp.ones_like(inv_last), bcarry[:, :]) * inv_last
-    for c in range(C - 1, -1, -1):
-        graw = alpha_ref[c].astype(jnp.float32) * beta
-        # The beta' chain drifts by a slowly-accumulating per-sequence
-        # f32-rounding scalar; dividing gamma_t and the stats-side d_t by
-        # sum(graw) removes that common mode exactly (~1e-6 marginals) —
-        # a VPU reduce off the beta chain (outputs only).
-        inv = _seg_bcast_inv(graw, K)
-        gamma_ref[c] = graw * inv
-        d = elbuf[c] * beta  # exp'd lik with the replay factor pre-folded
-        # stats-side d: gated by the pair mask w_{t-1} w_t (SVI buffer
-        # discard) and renormalized against the beta-chain scale drift;
-        # the beta chain always uses the UNGATED, un-normalized d
-        dstash[c] = (gate(d, c) if gated else d) * inv
-        beta = chain_step(d)
-    bcarry[:, :] = beta  # unreplayed: the next tile applies its 1/c_last
-    dcarry[:, :] = dstash[0]
-    if C > 1:
-        # The in-tile pairings (alpha_{c-1}, d_c), c = 1..C-1, as ONE
-        # batched dim-0 contraction instead of C-1 small matmuls threaded
-        # through the serialized chain: same MXU flops, but the fixed
-        # per-matmul dispatch cost is paid once per tile and the big
-        # matmul has no dependency on the chain's schedule.
-        R_t = alpha_ref.shape[1]
-        a_blk = alpha_ref[0 : C - 1].reshape((C - 1) * R_t, PK_dim)
-        d_blk = dstash[1:C].reshape((C - 1) * R_t, PK_dim)
-        acc_ref[:, :] += outer_acc(a_blk, d_blk)
-
-
-def _fwd_kernel_fused(
-    pi_ref, A_ref, W_ref, feats_ref, alpha_ref, s_ref, sh_ref, carry, llbuf,
-    *, C, K, D, kind, prec, ll_prec
-):
-    """Forward tile with the expected-log-likelihood matmul FUSED in.
-
-    Identical recursion to :func:`_fwd_kernel`, but instead of reading a
-    precomputed (C, R, PK) log-likelihood block it reads either the
-    lane-packed per-observation FEATURES (C, R, PF) (kind=None; e.g.
-    one-hot(y) for MultinomialDirichlet with W = E[log phi]^T) or — for the
-    Gaussian families — the RAW observations (C, R, PD) with kind
-    "niw"/"nig", building the features in-registers (:func:`_build_feats`:
-    only D floats/obs ever cross HBM instead of F). Either way the weight
-    matrix kron(I_P, W) (PF, PK) turns them into the tile's
-    log-likelihoods with one batched MXU matmul in the prologue (into VMEM
-    scratch llbuf — the T*B*K log-likelihood array never exists in HBM).
-    """
-    j = pl.program_id(1)
-    PK = A_ref.shape[0]
-    tile_r = feats_ref.shape[1]
-
-    raw = feats_ref[...].reshape(C * tile_r, feats_ref.shape[2])
-    f2 = raw if kind is None else _build_feats(raw, D, PK // K, kind)
-    ll = _kdot(f2, W_ref[...], (((1,), (0,)), ((), ())), ll_prec)
-    llbuf[...] = ll.reshape(C, tile_r, PK)
-
-    def lik(p):
-        return _seg_shift_exp(llbuf[p], K)
-
-    A_split = _split_bf16(A_ref[:, :]) if prec == "bf16x3" else None
-
-    def raw_step(a_prev, lik_t):
-        return (
-            _kdot(a_prev, A_ref[:, :], (((1,), (0,)), ((), ())), prec,
-                  b_split=A_split)
-            * lik_t
-        )
-
-    lik0 = lik(0)
-    a = jnp.where(
-        j == 0,
-        pi_ref[0, :][None, :] * lik0,
-        raw_step(carry[:, :], lik0),
-    )
-    alpha_ref[0] = a.astype(alpha_ref.dtype)
-    # per-sequence renorm every step, folded into the likelihood operand
-    # so the segment reduce overlaps the MXU matmul (see _fwd_kernel)
-    inv = _seg_bcast_inv(a, K)
-    for p in range(1, C):
-        a = raw_step(a, lik(p) * inv)
-        alpha_ref[p] = a.astype(alpha_ref.dtype)
-        inv = _seg_bcast_inv(a, K)
-    carry[:, :] = a * inv
-
-    # epilogue: per-sequence stored scales + the max shifts (see _fwd_kernel)
-    P = PK // K
-    _emit_scales(alpha_ref, s_ref, K, prec)
-    for p in range(P):
-        sh_ref[p] = jnp.max(llbuf[:, :, p * K : (p + 1) * K], axis=-1)
-
-
-def _bwd_kernel_fused(
-    A_ref, W_ref, feats_ref, alpha_ref, *rest,
-    C, K, D, kind, gated, emit_gamma, sel_mode, prec, ll_prec, stats_prec
-):
-    """Backward tile fusing beta + gamma + pair stats + EMISSION stats.
-
-    Like :func:`_bwd_kernel` but (a) log-likelihoods are recomputed from
-    the features block (same matmul as the fused forward — bit-identical),
-    and (b) the emission sufficient stats sum_t w_t gamma_t f_t^T is
-    accumulated per tile as ONE (PK, C*R) x (C*R, PF) MXU matmul into a
-    VMEM-resident (PK, PF) accumulator — the packed gamma array is then
-    never read back from HBM, and with emit_gamma=False it is never even
-    written (training consumes only the stats; the t=0 smoothed marginal
-    that init_stats needs comes out through the tiny gamma0 output).
-
-    rest (in order): [w_ref if gated] [g_ref if gated] [sel_ref if
-    sel_mode] then outputs (gamma_ref | gamma0_ref), acc_ref, eacc_ref,
-    then scratches bcarry, dcarry, dstash, llbuf, gbuf. w_ref is the
-    kept-mask (C, R, P) gating the emission/init stats; g_ref the pair
-    gate for the transition stats. sel_mode: sel_ref is a (C, R, P)
-    per-sequence one-hot over TIME, and the gamma0-slot output
-    accumulates sum_t sel_t * gamma_t (UNgated) instead of gamma at
-    t = 0 — the windowed engines' per-window marginal pick, fused so
-    the full (T, R, PK) gamma array is never written to HBM at all.
-    """
-    idx = 0
-    if gated:
-        w_ref, g_ref = rest[0], rest[1]
-        idx = 2
-    else:
-        w_ref = g_ref = None
-    if sel_mode:
-        sel_ref = rest[idx]
-        idx += 1
-    else:
-        sel_ref = None
-    gout_ref, acc_ref, eacc_ref = rest[idx], rest[idx + 1], rest[idx + 2]
-    bcarry, dcarry, dstash, llbuf, gbuf = rest[idx + 3 :]
-
-    P = A_ref.shape[0] // K
-    PK_dim = A_ref.shape[0]
-    tile_r = feats_ref.shape[1]
-
-    def lane_bcast(gc):
-        if P == 1:
-            return gc
-        return jnp.concatenate(
-            [jnp.broadcast_to(gc[:, p : p + 1], (gc.shape[0], K)) for p in range(P)],
-            axis=-1,
-        )
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    nT = pl.num_programs(1)
-
-    @pl.when((i == 0) & (j == 0))
-    def _():
-        acc_ref[:, :] = jnp.zeros_like(acc_ref)
-        eacc_ref[:, :] = jnp.zeros_like(eacc_ref)
-
-    if sel_mode:
-        # gout is a per-row-tile block revisited across the (reversed)
-        # time grid: zero it on this row tile's first visit
-        @pl.when(j == 0)
-        def _():
-            gout_ref[:, :] = jnp.zeros_like(gout_ref)
-
-    # prologue: recompute this tile's log-likelihoods (bit-identical to fwd)
-    raw = feats_ref[...].reshape(C * tile_r, feats_ref.shape[2])
-    f2 = raw if kind is None else _build_feats(raw, D, P, kind)
-    ll = _kdot(f2, W_ref[...], (((1,), (0,)), ((), ())), ll_prec)
-    # Batched: exp-shift the whole tile's likelihoods (bit-identical to the
-    # forward's per-step shifts — max is exact) and fold in the per-step
-    # renorm replay factors 1/c_{t-1}, which are alpha-only. One vectorized
-    # VPU pass instead of C segmented reduces serialized with the loop
-    # (measured ~7% of the whole E-step). Step c = 0's factor lives in the
-    # next-visited tile and is applied at consumption (see docstring).
-    el = _seg_shift_exp(ll.reshape(C, tile_r, PK_dim), K)
-    if C > 1:
-        r_prev = _seg_bcast_inv(alpha_ref[0 : C - 1].astype(jnp.float32), K)  # (..., PK) or (..., 1)
-        el = el * jnp.concatenate(
-            [jnp.ones((1,) + r_prev.shape[1:], jnp.float32), r_prev], axis=0
-        )
-    llbuf[...] = el
-
-    A_split = _split_bf16(A_ref[:, :]) if prec == "bf16x3" else None
-
-    def outer_acc(a, d, p_):
-        return _kdot(a, d, (((0,), (0,)), ((), ())), p_)
-
-    def chain_step(d):
-        return _kdot(d, A_ref[:, :], (((1,), (1,)), ((), ())), prec,
-                     b_split=A_split)
-
-    # 1/c of this tile's LAST step: seeds beta' at j = 0 (beta_hat = 1)
-    # and replays the later tile's handed-over beta / d_0 at j != 0
-    # (see _bwd_kernel: no scale arrays cross the kernel boundary)
-    inv_last = _seg_bcast_inv(alpha_ref[C - 1].astype(jnp.float32), K)
-
-    @pl.when(j != 0)
-    def _():
-        acc_ref[:, :] += outer_acc(alpha_ref[C - 1].astype(jnp.float32) * inv_last, dcarry[:, :], prec)
-
-    beta = jnp.where(j == 0, jnp.ones_like(inv_last), bcarry[:, :]) * inv_last
-    gsel = None
-    for c in range(C - 1, -1, -1):
-        graw = alpha_ref[c].astype(jnp.float32) * beta
-        inv = _seg_bcast_inv(graw, K)  # off the beta chain (outputs only)
-        gamma_c = graw * inv
-        if emit_gamma:
-            gout_ref[c] = gamma_c
-        if sel_mode:
-            # per-window time-pick, UNgated (matches the scan path's
-            # gamma-at-offset contract); VPU mul-add off the chain
-            contrib = gamma_c * lane_bcast(sel_ref[c])
-            gsel = contrib if gsel is None else gsel + contrib
-        # stats-side gamma: kept-mask-gated (emission stats and, at t=0,
-        # the init stats both want w_t * gamma_t)
-        gbuf[c] = gamma_c * lane_bcast(w_ref[c]) if gated else gamma_c
-        d = llbuf[c] * beta  # exp'd lik with the replay factor pre-folded
-        dstash[c] = (d * lane_bcast(g_ref[c]) if gated else d) * inv
-        beta = chain_step(d)
-    bcarry[:, :] = beta  # unreplayed: the next tile applies its 1/c_last
-    dcarry[:, :] = dstash[0]
-    if sel_mode:
-        gout_ref[:, :] += gsel
-    elif not emit_gamma:
-        # t = 0 lives in the LAST visited tile (time grid runs reversed)
-        @pl.when(j == nT - 1)
-        def _():
-            gout_ref[:, :] = gbuf[0]
-    if C > 1:
-        a_blk = alpha_ref[0 : C - 1].reshape((C - 1) * tile_r, PK_dim)
-        d_blk = dstash[1:C].reshape((C - 1) * tile_r, PK_dim)
-        acc_ref[:, :] += outer_acc(a_blk, d_blk, prec)
-    # emission-stat accumulation: one batched contraction per tile
-    # (stats_prec: HIGHEST by default — bf16 second moments broke the NIW
-    # posterior's PSD margin in real SVI training; utils/precision.py).
-    eacc_ref[:, :] += outer_acc(
-        gbuf[...].reshape(C * tile_r, PK_dim), f2, stats_prec
-    )
-
-
-def _choose_packing(B: int, K: int) -> int:
-    """Sequences per 128-lane row: chain latency scales with ROWS, so pack
-    as many K-lane sequences side by side as divide both 128 and B."""
-    P = LANES // K if K <= LANES // 2 and LANES % K == 0 else 1
-    while P > 1 and B % P:
-        P //= 2
-    return max(P, 1)
-
-
-def _choose_tiles(R: int, T: int, PK: int, budget_bytes: int = 2 * 1024 * 1024,
-                  elem_bytes: int | None = None):
-    """(row_tile, time_tile): row tile as large as VMEM affords (grid cells
-    serialize, so row tiling multiplies sequential depth); time tile a
-    multiple of 8 (sublane rule) just big enough to pipeline DMA.
-
-    budget_bytes/elem_bytes parametrize the VMEM accounting: the split
-    kernels budget ~2 MB per PK-wide block; the fused kernels pass the
-    TOTAL per-(c, r) resident footprint (alpha + feats + gamma + three
-    scratches) against a ~48 MB whole-cell budget (_choose_tiles_fused)."""
-    if elem_bytes is None:
-        elem_bytes = PK * 4
-    # The bwd cell keeps lik + alpha in, gamma out, plus carries and the
-    # accumulator resident; with the raised scoped-VMEM budget a ~2 MB
-    # block is safe and keeps the grid-cell count low.
-    block_budget = budget_bytes // elem_bytes  # elems per (C, tile_r) block
-
-    # Mosaic's tiling rule for the (P, C, tile_r) scale blocks: the last
-    # two block dims must be (multiple of 8, multiple of 128) OR equal the
-    # whole array dim. So every candidate here is C a multiple of 8 (or
-    # C == T, the whole-axis fallback) and tile_r a multiple of 128 (or
-    # tile_r == R). Anything else fails TPU lowering (caught for real:
-    # T = 1000 with a hand-passed C = 20 tile).
-    rows = [t for t in ([R] if R <= 1024 else []) + [128 * k for k in range(8, 0, -1)]
-            if t <= R and R % t == 0]
-    rows = sorted(set(rows), reverse=True) or [R]  # R > 1024, no 128-mult divisor
-
-    def time_tile(tr):
-        cap = 8 * (block_budget // tr // 8)
-        for cand in range(min(cap, T - T % 8, 32), 0, -8):
-            if T % cand == 0:
-                return cand
-        return 0
-
-    for tile_r in rows:
-        C = time_tile(tile_r)
-        if C:
-            return tile_r, C
-    # no multiple-of-8 divisor of T (e.g. T = 70, 31): whole time axis in
-    # one block — always tiling-legal; the static in-kernel unroll is T
-    # steps, so resolve_method routes big awkward T to scan ("auto") and
-    # only explicit pallas requests land here for T > 32.
-    for tile_r in rows:
-        if 4 * tile_r * T * elem_bytes <= 10 * 1024 * 1024:
-            return tile_r, T
-    if T > 256:
-        # No bounded tile exists (awkward R with no 128-multiple divisor AND
-        # no whole-axis tile under the VMEM budget): a C = T block here would
-        # statically unroll the whole time axis in-kernel — for large T
-        # exactly the compile blowup the tiler guards against. Fail loudly;
-        # callers that want a fallback should route through
-        # resolve_method("auto"), which avoids pallas for untileable shapes.
-        # Moderate T (<= 256, e.g. the W=70 whole-window case) stays a
-        # supported explicit-pallas unroll even over the soft VMEM budget.
-        raise ValueError(
-            f"no bounded Mosaic-legal time tile for R={R}, T={T} "
-            f"(PK={PK}): pad T to a multiple of 8 or use method='scan'"
-        )
-    return rows[-1], T
-
-
-def _check_tiles(
-    tile_r: int, C: int, R: int, T: int, explicit: bool, interpret: bool = False
-):
-    """Validate a (row_tile, time_tile) pair against divisibility, Mosaic's
-    tiling rule, and the static-unroll bound (hand-passed tiles only).
-
-    The Mosaic legality rule applies only when actually lowering to TPU
-    (interpret=False): the pallas interpreter has no tiling constraints, and
-    interpret-mode tests deliberately exercise multi-row-tile grids at small
-    R (e.g. tiles (2, 16) at R=4) to cover the grid arithmetic."""
-    if R % tile_r or T % C:
-        raise ValueError(f"tiles {(tile_r, C)} must divide (R={R}, T={T})")
-    if not interpret and ((C % 8 and C != T) or (tile_r % 128 and tile_r != R)):
-        raise ValueError(
-            f"tiles {(tile_r, C)} are not Mosaic-tiling-legal: the time tile "
-            f"must be a multiple of 8 (or exactly T={T}), the row tile a "
-            f"multiple of 128 (or exactly R={R})"
-        )
-    if explicit and C > 32 and C != T:
-        raise ValueError(f"time_tile {C} > 32: statically unrolled in-kernel")
-
-
-def _choose_tiles_fused(R: int, T: int, PK: int, PF: int):
-    """Tile choice for the fused kernels: the feature block is PF wide and
-    three extra (C, tile_r, PK) scratches stay resident, so budget the
-    whole per-(c, r) footprint instead of one PK-wide block. The budget is
-    ~half the raised 100 MB scoped-VMEM limit because Pallas DOUBLE-BUFFERS
-    every grid-mapped in/out block for DMA pipelining (caught for real: a
-    (512, 24) gated tile allocated 117 MB against a 45 MB single-buffer
-    estimate and OOM'd vmem at W=72/B=1024)."""
-    return _choose_tiles(
-        R, T, PK,
-        budget_bytes=24 * 1024 * 1024,
-        elem_bytes=(6 * PK + PF) * 4,
-    )
-
-
-def _log_c_from_scales(s_out, sh_out):
-    """Per-step log scaling constants from the forward kernel's outputs.
-
-    With per-sequence renorm every step, the stored alpha_t is exactly
-    alpha_hat_t * c_t (shifted), so log c_t = log s_t + shift_t directly —
-    s_out holds the per-step per-sequence sums and sh_out the max shifts
-    the in-kernel exp ran under (both (P, T, R) transposed-dense). All the
-    backward kernel's scale algebra is in-kernel-resident (see
-    _bwd_kernel), so this is the only between-kernel bookkeeping left.
-    Returns log_c (B, T); sum over T = log Z per sequence.
-    """
-    P, T, R = s_out.shape
-    log_c3 = jnp.log(s_out) + sh_out  # (P, T, R)
-    # one 4*T*B-byte relayout to the user-facing (B, T): b = r*P + p
-    return jnp.transpose(log_c3, (2, 0, 1)).reshape(P * R, T)
+from jax.experimental.pallas import triton as plgpu
+
+from .scan_fb import FBResult
+
+TINY = 1e-37  # per-sequence sum floor: a fully-underflowed step degrades to
+# zero statistics instead of 0/0 NaN
+PAD_LL = -1e30  # log-likelihood of padded states: exp(PAD_LL - max) == 0
+# Sequences per program: 16 is the least the Sigma-xi dot takes (its
+# contraction runs over the block's rows). Measured on an H100 at
+# K=64/B=1024/T=1000, the recursion takes 4.04 ms at 16 rows and 8 warps,
+# 4.74 ms at 4 warps, 5.71 ms at 16 warps, 5.76 ms at 32 rows (fewer
+# programs than SMs either way: 64 and 32 on 132).
+BLOCK_B = 16
+NUM_WARPS = 8
+
+
+def _lik(ll):
+    """exp(ll - per-row max) and the max, for one (rows, Kp) step."""
+    m = jnp.max(ll, axis=1)
+    return jnp.exp(ll - m[:, None]), m
+
+
+def _norm(x):
+    """Per-row sums of x, floored at TINY, as a (rows, 1) column."""
+    return jnp.maximum(jnp.sum(x, axis=1), TINY)[:, None]
+
+
+def _fwd_kernel(pi_ref, A_ref, ll_ref, alpha_ref, logc_ref, *, T, precision):
+    """Forward sweep of one block: writes alpha_hat (rows, T, Kp) and the
+    per-step log scaling constants log c_t + shift_t (rows, T)."""
+    A = A_ref[...]
+
+    def emit(t, a, m):
+        c = jnp.maximum(jnp.sum(a, axis=1), TINY)
+        alpha = a / c[:, None]
+        alpha_ref[:, t, :] = alpha
+        logc_ref[:, t] = jnp.log(c) + m
+        return alpha
+
+    lik0, m0 = _lik(ll_ref[:, 0, :])
+    alpha0 = emit(0, pi_ref[...] * lik0, m0)
+
+    def step(t, alpha):
+        lik, m = _lik(ll_ref[:, t, :])
+        a = pl.dot(alpha, A, precision=precision) * lik
+        return emit(t, a, m)
+
+    lax.fori_loop(1, T, step, alpha0)
+
+
+def _bwd_kernel(At_ref, ll_ref, alpha_ref, g_ref, gamma_ref, xi_ref, *, T,
+                precision):
+    """Backward sweep of one block: beta recursion fused with gamma and this
+    block's partial sum of g_t outer(alpha_hat_{t-1} / n_t, lik_t beta_t)."""
+    At = At_ref[...]
+    a_last = alpha_ref[:, T - 1, :]
+    gamma_ref[:, T - 1, :] = a_last / _norm(a_last)
+    Kp = At.shape[0]
+
+    def step(s, carry):
+        beta, acc = carry
+        t = T - 1 - s
+        lik, _ = _lik(ll_ref[:, t, :])
+        e = lik * beta
+        braw = pl.dot(e, At, precision=precision)  # A~ @ e per row
+        a_prev = alpha_ref[:, t - 1, :]
+        prod = a_prev * braw
+        n = _norm(prod)
+        gamma_ref[:, t - 1, :] = prod / n
+        wa = a_prev * (g_ref[:, t][:, None] / n)
+        acc = acc + pl.dot(wa, e, trans_a=True, precision=precision)
+        return braw / _norm(braw), acc
+
+    beta0 = jnp.ones_like(a_last)
+    acc0 = jnp.zeros((Kp, Kp), jnp.float32)
+    _, acc = lax.fori_loop(0, T - 1, step, (beta0, acc0))
+    xi_ref[...] = acc
+
+
+def padded_shapes(B: int, K: int, block_b: int = BLOCK_B) -> tuple[int, int]:
+    """(Bp, Kp): the batch rounded up to whole blocks, the state count to a
+    power of two of at least 16 (the smallest dot Triton takes)."""
+    Kp = max(16, pl.next_power_of_2(K))
+    Bp = -(-B // block_b) * block_b
+    return Bp, Kp
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "tiles", "emit_gamma", "in_kernel_feats", "feats_packed", "precision", "ll_precision", "stats_precision", "exact_alpha"),
-)
-def pallas_estep_fused(
-    log_pi: jax.Array,
-    log_A: jax.Array,
-    W: jax.Array,  # (F, K) per-observation feature weights: ll = feats @ W
-    feats: jax.Array,  # (T, B, F) TIME-MAJOR features — or raw (T, B, D)
-    #                    observations when in_kernel_feats is set
-    weights: jax.Array | None = None,  # (T, B) kept-mask (SVI buffers)
-    gamma_sel: jax.Array | None = None,  # (B,) int per-sequence time pick:
-    #   requires emit_gamma=False; the gamma0-slot output becomes the
-    #   UNgated smoothed marginal gamma[sel_b] per sequence, accumulated
-    #   IN-KERNEL so the (T, B, K) gamma array is never written (the
-    #   windowed SVI engines' per-window offset pick)
-    interpret: bool = False,
-    tiles: tuple[int, int] | None = None,
-    emit_gamma: bool = False,
-    in_kernel_feats: str | None = None,  # None | "niw" | "nig"
-    feats_packed: int = 0,  # P > 0: feats already lane-packed (T, B/P, P*Fin)
-    precision: lax.Precision | str = lax.Precision.HIGHEST,
-    ll_precision: lax.Precision | str = lax.Precision.HIGHEST,
-    stats_precision: lax.Precision | str = lax.Precision.HIGHEST,
-    exact_alpha: bool = False,  # force f32 alpha storage (evaluation calls:
-    #   log_c derives from the STORED alpha, so bf16 storage injects
-    #   ~sqrt(T)*1e-3 nats of rounding into log Z — fine for training
-    #   steps, not for a user-facing exact ELBO)
-) -> tuple[FBResult, jax.Array]:
-    """Fully-fused batched E-step: likelihoods + FB + ALL stats in-kernel.
-
-    The next fusion tier above :func:`pallas_forward_backward_batched`:
-    the expected-log-likelihood matmul moves INTO both kernels (the
-    (T, B, K) log-likelihood array never exists in HBM; the backward
-    recomputes the tile bit-identically) and the emission sufficient
-    stats sum_t w_t gamma_t f_t^T accumulate INTO the backward kernel
-    (packed gamma is never read back; with emit_gamma=False it is never
-    written — training steps consume only the stats).
-
-    Returns (FBResult, emit_stats (K, F)) where emit_stats is summed over
-    batch and time (kept-mask-gated when weights given). FBResult.gamma
-    is the packed (T, B/P, P*K) array when emit_gamma=True, else None.
-    Per-step log_c / log_z / init_stats / trans_stats follow the standard
-    contract. ALL matmuls default to HIGHEST (Mosaic supports only
-    DEFAULT/HIGHEST dot precisions): the chains and likelihood matmul per
-    the utils/precision.py policy, and the emission-stat sums because
-    bf16-rounded y (x) y second moments broke the NIW posterior's PSD
-    margin in real SVI training (finite-but-indefinite psi -> NaN on the
-    following E-step).
-
-    in_kernel_feats: for the Gaussian families, pass the RAW observations
-    (T, B, D) as ``feats`` and set "niw" ([1, y, y (x) y]) or "nig"
-    ([1, y, y*y]); the kernels build the features in-registers so only
-    D floats/obs cross HBM instead of F (73 at NIW D=8) — the fused
-    E-step's dominant traffic term (see :func:`_build_feats`).
-
-    feats_packed: P > 0 means the caller already built feats in the
-    kernels' packed (T, B/P, P*Fin) layout with that lane packing (must
-    equal what :func:`_choose_packing` picks for (B, K); engines/base.py
-    builds the Gaussian features per packed slot so XLA fuses the packing
-    into the feature construction). Without it, the (T, B, Fin) ->
-    (T, B/P, P*Fin) reshape here is a 2-pass whole-array relayout under
-    TPU tiled layouts — measured 2.8 ms of the 11 ms E-step at the
-    benchmark shape.
-    """
-    if feats_packed:
-        T, R_in, PIN_in = feats.shape
-        B = R_in * feats_packed
-        Fin = PIN_in // feats_packed
-    else:
-        T, B, Fin = feats.shape
-    K = log_A.shape[0]
-    if in_kernel_feats is None:
-        D = 0
-        F = Fin
-    else:
-        D = Fin
-        F = 1 + D + D * (D + 1) // 2 if in_kernel_feats == "niw" else 1 + 2 * D
-    if F != W.shape[0]:
-        raise ValueError(f"W rows {W.shape[0]} != feature width {F}")
-
-    if feats.dtype != jnp.bfloat16:
-        # bf16-stored features pass through: the kernels read the half-width
-        # HBM stream directly and _kdot skips the zero split passes
-        # (PYSVIHMM_BF16_FEATS measurement knob, engines/base.py)
-        feats = feats.astype(jnp.float32)
-    w_tm = weights.astype(jnp.float32) if weights is not None else None
-    A_tilde = jnp.exp(log_A).astype(jnp.float32)
-    pi_tilde = jnp.exp(log_pi).astype(jnp.float32)
-
-    P = _choose_packing(B, K)
-    if feats_packed and feats_packed != P:
-        raise ValueError(f"feats packed with P={feats_packed}, expected {P}")
-    PK = P * K
-    R = B // P
-    PF = P * F
-    PIN = P * Fin  # input block lane width (PD when building in-kernel)
-
-    A_blk = jnp.kron(jnp.eye(P, dtype=jnp.float32), A_tilde)  # (PK, PK)
-    W_blk = jnp.kron(jnp.eye(P, dtype=jnp.float32), W.astype(jnp.float32))  # (PF, PK)
-    pi_blk = jnp.tile(pi_tilde, (P,))[None, :]  # (1, PK)
-    # trace-time policy/env read; exact_alpha pins f32 (evaluation calls)
-    adt = jnp.float32 if exact_alpha else _alpha_store_dtype(emit_gamma)
-
-    feats_p = feats if feats_packed else feats.reshape(T, R, PIN)
-
-    # tile accounting includes the full feature width even when built
-    # in-kernel (f2 is then register/stack-resident per tile)
-    tile_r, C = tiles if tiles is not None else _choose_tiles_fused(R, T, PK, PF)
-    _check_tiles(tile_r, C, R, T, explicit=tiles is not None, interpret=interpret)
-    nR, nT = R // tile_r, T // C
-
-    compiler_params = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-
-    alpha_t, s_out, sh_out = pl.pallas_call(
-        functools.partial(
-            _fwd_kernel_fused, C=C, K=K, D=D, kind=in_kernel_feats,
-            prec=precision, ll_prec=ll_precision,
-        ),
-        grid=(nR, nT),
-        in_specs=[
-            pl.BlockSpec((1, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((PF, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (C, tile_r, PIN), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (C, tile_r, PK), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (P, C, tile_r), lambda i, j: (0, j, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (P, C, tile_r), lambda i, j: (0, j, i), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((T, R, PK), adt),
-            jax.ShapeDtypeStruct((P, T, R), jnp.float32),
-            jax.ShapeDtypeStruct((P, T, R), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),
-        ],
-        compiler_params=None if interpret else compiler_params,
-        interpret=interpret,
-    )(pi_blk, A_blk, W_blk, feats_p)
-
-    log_c = _log_c_from_scales(s_out, sh_out)
-
-    gated = w_tm is not None
-    bwd_inputs = [A_blk, W_blk, feats_p, alpha_t]
-    bwd_in_specs = [
-        pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((PF, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(
-            (C, tile_r, PIN),
-            lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        pl.BlockSpec(
-            (C, tile_r, PK),
-            lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    ]
-    if gated:
-        w3 = w_tm.reshape(T, R, P)
-        g = jnp.concatenate(
-            [jnp.zeros((1, B), jnp.float32), w_tm.reshape(T, B)[:-1] * w_tm.reshape(T, B)[1:]],
-            axis=0,
-        ).reshape(T, R, P)
-        bwd_inputs += [w3, g]
-        for _ in range(2):
-            bwd_in_specs.append(
-                pl.BlockSpec(
-                    (C, tile_r, P),
-                    lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-                    memory_space=pltpu.VMEM,
-                )
-            )
-
-    sel_mode = gamma_sel is not None
-    if sel_mode:
-        if emit_gamma:
-            raise ValueError("gamma_sel requires emit_gamma=False")
-        # (B,) time picks -> (T, R, P) lane-packed one-hot over time
-        sel3 = jnp.swapaxes(
-            jax.nn.one_hot(gamma_sel, T, dtype=jnp.float32), 0, 1
-        ).reshape(T, R, P)
-        bwd_inputs.append(sel3)
-        bwd_in_specs.append(
-            pl.BlockSpec(
-                (C, tile_r, P),
-                lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-                memory_space=pltpu.VMEM,
-            )
-        )
-
-    if emit_gamma:
-        gamma_spec = pl.BlockSpec(
-            (C, tile_r, PK),
-            lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-            memory_space=pltpu.VMEM,
-        )
-        gamma_shape = jax.ShapeDtypeStruct((T, R, PK), jnp.float32)
-    else:
-        gamma_spec = pl.BlockSpec(
-            (tile_r, PK), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-        )
-        gamma_shape = jax.ShapeDtypeStruct((R, PK), jnp.float32)
-
-    gamma_out, acc, eacc = pl.pallas_call(
-        functools.partial(
-            _bwd_kernel_fused,
-            C=C, K=K, D=D, kind=in_kernel_feats, gated=gated,
-            emit_gamma=emit_gamma, sel_mode=sel_mode,
-            prec=precision, ll_prec=ll_precision, stats_prec=stats_precision,
-        ),
-        grid=(nR, nT),
-        in_specs=bwd_in_specs,
-        out_specs=[
-            gamma_spec,
-            pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((PK, PF), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            gamma_shape,
-            jax.ShapeDtypeStruct((PK, PK), jnp.float32),
-            jax.ShapeDtypeStruct((PK, PF), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_r, PK), jnp.float32),
-            pltpu.VMEM((tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),
-        ],
-        compiler_params=None if interpret else compiler_params,
-        interpret=interpret,
-    )(*bwd_inputs)
-
-    log_z = jnp.sum(log_c, axis=-1)
-    acc_kk = sum(acc[p * K : (p + 1) * K, p * K : (p + 1) * K] for p in range(P))
-    trans_stats = A_tilde * acc_kk
-    emit_stats = sum(eacc[p * K : (p + 1) * K, p * F : (p + 1) * F] for p in range(P))
-
-    if emit_gamma:
-        init_g = gamma_out[0].reshape(B, K)
-        if gated:
-            init_g = init_g * w_tm.reshape(T, B)[0][:, None]
-        gamma = gamma_out
-    else:
-        # t0 mode: gamma0 output is already kept-mask-gated in-kernel.
-        # sel mode: the slot holds the UNgated per-sequence time-pick
-        # sum_t sel_t gamma_t (the windowed engines' offset marginal).
-        init_g = gamma_out.reshape(B, K)
-        gamma = None
-
-    fb = FBResult(
-        gamma=gamma,
-        log_z=log_z,
-        trans_stats=trans_stats,
-        init_stats=init_g,
-        log_c=log_c,
-    )
-    return fb, emit_stats
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "tiles", "time_major", "packed_gamma", "precision"),
+    jax.jit, static_argnames=("interpret", "block_b", "precision")
 )
 def pallas_forward_backward_batched(
     log_pi: jax.Array,
     log_A: jax.Array,
-    log_lik: jax.Array,  # (B, T, K), or (T, B, K) when time_major=True
-    weights: jax.Array | None = None,  # (B, T) / (T, B) kept-mask (SVI buffers)
+    log_lik: jax.Array,  # (B, T, K)
+    weights: jax.Array | None = None,  # (B, T) kept-mask (SVI buffers)
+    *,
     interpret: bool = False,
-    tiles: tuple[int, int] | None = None,
-    time_major: bool = False,
-    packed_gamma: bool = False,
-    precision: lax.Precision | str = lax.Precision.HIGHEST,
+    block_b: int = BLOCK_B,
+    precision=lax.Precision.HIGHEST,
 ) -> FBResult:
-    """Batched fully-fused FB.
+    """Batched forward-backward with the scan path's contract.
 
-    Returns FBResult with leading batch axis on gamma / log_z / init_stats /
-    log_c, but trans_stats SUMMED over the batch, shape (K, K) — the form
-    every engine's global update consumes (sum over sequences).
-
-    tiles: optional (row_tile, time_tile) override of _choose_tiles for
-    autotuning (rows = B / P packed rows); both must divide (B/P, T), and
-    time_tile <= 32 (the kernels unroll it statically).
-
-    time_major=True avoids the 4*T*B*K-byte transpose feeding the kernel:
-    pass the likelihoods already as (T, B, K) (the emission producer can
-    emit that layout for free — batch_local_step does).
-
-    packed_gamma=True returns gamma in the kernels' native packed layout
-    (T, B/P, P*K) so downstream matmuls (packed emission stats) can read
-    it without an XLA re-layout copy of the whole array; init_stats stays
-    (B, K).
+    Returns FBResult with a leading batch axis on gamma / log_z /
+    init_stats / log_c, and trans_stats SUMMED over the batch, shape (K, K)
+    (what every global update consumes).
     """
-    # Likelihoods stay RAW in LOG space; the per-sequence max shift and the
-    # exp run inside the kernels on the VPU. Reshapes below are pure
-    # bitcasts on a row-major producer — no subtract pass, no layout copies
-    # of the full T*B*K array.
-    if time_major:
-        T, B, K = log_lik.shape
-        lik_tm = log_lik.astype(jnp.float32)
-        w_tm = weights.astype(jnp.float32) if weights is not None else None
-    else:
-        B, T, K = log_lik.shape
-        lik_tm = jnp.swapaxes(log_lik.astype(jnp.float32), 0, 1)
-        w_tm = (
-            jnp.swapaxes(weights.astype(jnp.float32), 0, 1)
-            if weights is not None
-            else None
-        )
+    B, T, K = log_lik.shape
+    Bp, Kp = padded_shapes(B, K, block_b)
+    nb = Bp // block_b
+
+    ll = log_lik.astype(jnp.float32)
+    if Kp != K:
+        ll = jnp.pad(ll, ((0, 0), (0, 0), (0, Kp - K)), constant_values=PAD_LL)
+    if Bp != B:
+        ll = jnp.pad(ll, ((0, Bp - B), (0, 0), (0, 0)))
     A_tilde = jnp.exp(log_A).astype(jnp.float32)
-    pi_tilde = jnp.exp(log_pi).astype(jnp.float32)
+    A_p = jnp.pad(A_tilde, ((0, Kp - K), (0, Kp - K)))
+    pi_p = jnp.pad(jnp.exp(log_pi).astype(jnp.float32), (0, Kp - K))[None, :]
 
-    P = _choose_packing(B, K)
-    PK = P * K
-    R = B // P
+    w = (jnp.ones((B, T), jnp.float32) if weights is None
+         else weights.astype(jnp.float32))
+    gates = jnp.concatenate(
+        [jnp.zeros((B, 1), jnp.float32), w[:, :-1] * w[:, 1:]], axis=1
+    )
+    gates = jnp.pad(gates, ((0, Bp - B), (0, 0)))
 
-    A_blk = jnp.kron(jnp.eye(P, dtype=jnp.float32), A_tilde)  # (PK, PK)
-    pi_blk = jnp.tile(pi_tilde, (P,))[None, :]  # (1, PK)
+    params = None if interpret else plgpu.CompilerParams(
+        num_warps=NUM_WARPS, num_stages=1
+    )
+    full = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))
+    rows3 = pl.BlockSpec((block_b, T, Kp), lambda i: (i, 0, 0))
+    rows2 = pl.BlockSpec((block_b, T), lambda i: (i, 0))
 
-    # (T, R, PK) time-major packed: row r carries sequences r*P .. r*P+P-1
-    lik = lik_tm.reshape(T, R, PK)
-
-    tile_r, C = tiles if tiles is not None else _choose_tiles(R, T, PK)
-    # the kernels unroll the time tile statically; beyond ~32 steps the
-    # Mosaic compile blows up (auto-tiling exceeds this only for awkward T
-    # with no multiple-of-8 divisor, where the whole axis is one tile)
-    _check_tiles(tile_r, C, R, T, explicit=tiles is not None, interpret=interpret)
-    nR, nT = R // tile_r, T // C
-
-    # Mosaic's default scoped-VMEM budget rejects the largest row tiles;
-    # raise it so grid-cell count (sequential on the TensorCore) stays low.
-    compiler_params = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-
-    alpha_t, s_out, sh_out = pl.pallas_call(
-        functools.partial(_fwd_kernel, C=C, K=K, log_in=True, prec=precision),
-        grid=(nR, nT),
-        in_specs=[
-            pl.BlockSpec((1, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (C, tile_r, PK), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (C, tile_r, PK), lambda i, j: (j, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (P, C, tile_r), lambda i, j: (0, j, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (P, C, tile_r), lambda i, j: (0, j, i), memory_space=pltpu.VMEM
-            ),
-        ],
+    alpha, log_c = pl.pallas_call(
+        functools.partial(_fwd_kernel, T=T, precision=precision),
+        grid=(nb,),
+        in_specs=[full((1, Kp)), full((Kp, Kp)), rows3],
+        out_specs=[rows3, rows2],
         out_shape=[
-            jax.ShapeDtypeStruct((T, R, PK), _alpha_store_dtype()),
-            jax.ShapeDtypeStruct((P, T, R), jnp.float32),
-            jax.ShapeDtypeStruct((P, T, R), jnp.float32),
+            jax.ShapeDtypeStruct((Bp, T, Kp), jnp.float32),
+            jax.ShapeDtypeStruct((Bp, T), jnp.float32),
         ],
-        scratch_shapes=[pltpu.VMEM((tile_r, PK), jnp.float32)],
-        compiler_params=None if interpret else compiler_params,
+        backend="triton",
+        compiler_params=params,
         interpret=interpret,
-    )(pi_blk, A_blk, lik)
+        name="hmm_forward",
+    )(pi_p, A_p, ll)
 
-    # Scale bookkeeping, all elementwise/XLA between the kernels: the
-    # per-step per-sequence scales s_out and the in-kernel max shifts
-    # sh_out are emitted TRANSPOSED-dense (P, T, R) — the wide row axis is
-    # minor, so nothing here touches a lane-padded array.
-    log_c = _log_c_from_scales(s_out, sh_out)
-
-    gated = w_tm is not None
-    bwd_inputs = [A_blk, lik, alpha_t]
-    bwd_in_specs = [
-        pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(
-            (C, tile_r, PK),
-            lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        pl.BlockSpec(
-            (C, tile_r, PK),
-            lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    ]
-    if gated:
-        # pair gates g_t = w_{t-1} w_t (the transition (t-1, t) is kept iff
-        # both endpoints are kept; g_0 is never read)
-        g = jnp.concatenate(
-            [jnp.zeros((1, B), jnp.float32), w_tm[:-1] * w_tm[1:]], axis=0
-        ).reshape(T, R, P)
-        bwd_inputs.append(g)
-        bwd_in_specs.append(
-            pl.BlockSpec(
-                (C, tile_r, P),
-                lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-                memory_space=pltpu.VMEM,
-            )
-        )
-
-    gamma_t, acc = pl.pallas_call(
-        functools.partial(
-            _bwd_kernel, C=C, K=K, gated=gated, log_in=True, prec=precision
-        ),
-        grid=(nR, nT),
-        in_specs=bwd_in_specs,
-        out_specs=[
-            pl.BlockSpec(
-                (C, tile_r, PK),
-                lambda i, j, nT=nT: (nT - 1 - j, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((PK, PK), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ],
+    gamma, xi = pl.pallas_call(
+        functools.partial(_bwd_kernel, T=T, precision=precision),
+        grid=(nb,),
+        in_specs=[full((Kp, Kp)), rows3, rows3, rows2],
+        out_specs=[rows3, pl.BlockSpec((None, Kp, Kp), lambda i: (i, 0, 0))],
         out_shape=[
-            jax.ShapeDtypeStruct((T, R, PK), jnp.float32),
-            jax.ShapeDtypeStruct((PK, PK), jnp.float32),
+            jax.ShapeDtypeStruct((Bp, T, Kp), jnp.float32),
+            jax.ShapeDtypeStruct((nb, Kp, Kp), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_r, PK), jnp.float32),
-            pltpu.VMEM((tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),
-            pltpu.VMEM((C, tile_r, PK), jnp.float32),  # elbuf
-        ],
-        compiler_params=None if interpret else compiler_params,
+        backend="triton",
+        compiler_params=params,
         interpret=interpret,
-    )(*bwd_inputs)
+        name="hmm_backward",
+    )(A_p.T, ll, alpha, gates)
 
-    log_z = jnp.sum(log_c, axis=-1)
-    # sum the P diagonal K x K blocks of the packed accumulator
-    acc_kk = sum(acc[p * K : (p + 1) * K, p * K : (p + 1) * K] for p in range(P))
-    trans_stats = A_tilde * acc_kk  # (K, K), summed over batch and time
-
-    init_stats = gamma_t[0].reshape(B, K)
-    if gated:
-        # kept-mask gate on the t=0 contribution (contract shared with the
-        # scan/assoc/blocked paths: init_stats = w_0 * gamma_0)
-        init_stats = init_stats * w_tm[0][:, None]
-    gamma = gamma_t if packed_gamma else jnp.swapaxes(gamma_t.reshape(T, B, K), 0, 1)
-
+    gamma = gamma[:B, :, :K]
+    log_c = log_c[:B]
+    trans_stats = A_tilde * jnp.sum(xi, axis=0)[:K, :K]
     return FBResult(
         gamma=gamma,
-        log_z=log_z,
+        log_z=jnp.sum(log_c, axis=-1),
         trans_stats=trans_stats,
-        init_stats=init_stats,
+        init_stats=gamma[:, 0] * w[:, :1],
         log_c=log_c,
     )

@@ -1,11 +1,12 @@
 """Forward-backward message passing as `lax.scan` — the E-step hot kernel.
 
-TPU-native replacement for the reference's Cython forward-backward extension
+Replacement for the reference's Cython forward-backward extension
 (``pysvihmm`` ``setup.py build_ext`` fast path + the numpy fallback in
 ``hmmbase.py`` — reconstructed, SURVEY.md §2.3). Instead of a C loop over one
 sequence, the scan carries a whole *batch* of sequences: each time step is a
-(B, K) @ (K, K) matmul plus fused elementwise rescaling, which XLA maps onto
-the MXU. `vmap`/sharding over the batch axis is how this scales to pods.
+(B, K) @ (K, K) matmul plus fused elementwise rescaling. `vmap`/sharding over
+the batch axis is how this scales to many devices. On a CUDA device the
+batched E-step runs messages/pallas_fb.py's kernels instead (same math).
 
 Math (normalized-space with per-step scaling constants, matching the
 reference's numerics; Foti et al. 2014, Rabiner 1989):
@@ -130,13 +131,13 @@ def forward_backward(
     caller; here weights gate init_stats (w_0) and trans_stats (a transition
     t -> t+1 is kept iff w_t == w_{t+1} == 1).
 
-    TPU-first trick: since each normalized pairwise marginal factors as
+    Batched trick: since each normalized pairwise marginal factors as
     xi_t = outer(alpha_t / n_t, lik_{t+1} * beta_{t+1}) ⊙ A~ with scalar
     normalizer n_t, the *summed* transition stats collapse to
 
         sum_t w_t xi_t = A~ ⊙ ((alpha ⊙ w/n)[:-1]^T @ (lik * beta)[1:])
 
-    — one (K, T) @ (T, K) MXU matmul instead of a sequential K x K
+    — one (K, T) @ (T, K) matmul instead of a sequential K x K
     accumulation. Memory stays O(T K); the T x K x K xi tensor is never
     materialized.
     """

@@ -1,13 +1,13 @@
-"""Likelihood-fused streaming two-phase FB — the T≈100M-on-one-chip tier.
+"""Likelihood-fused streaming two-phase FB — the T≈10^8-on-one-card tier.
 
 The two-phase streaming path (messages/blocked.py::
 forward_backward_blocked_twophase) is exact and fast but takes the full
 (T, K) expected-log-likelihood array as INPUT and re-reads it in all three
-phases — ~3·T·K floats of HBM traffic and a (T, K)-sized residency that
-caps one chip at T ≈ 15M for K = 64 (VERDICT r4 missing #2). This module
-removes that array entirely: likelihoods are computed per CHUNK from the
-raw observations (T × D floats, 8× smaller at K=64/D=8) inside each phase,
-as one big MXU matmul per chunk that stays OFF the sequential chain.
+phases — ~3·T·K floats of device-memory traffic and a (T, K)-sized
+residency. This module removes that array entirely: likelihoods are
+computed per CHUNK from the raw observations (T × D floats, 8× smaller at
+K=64/D=8) inside each phase, as one big matmul per chunk that stays OFF
+the sequential chain.
 
 Memory tiers (K = 64, f32):
 
@@ -70,20 +70,18 @@ def _block_products_fused(
     """Per-block transfer products Q_b with in-chunk likelihoods.
 
     Same tree-reduce as blocked.py::_block_products (renormalized each
-    level, tiny-floored, identity where invalid, DEFAULT matmul precision
-    — the products steer boundary SEEDS only, see the error analysis
-    there), but the likelihood rows are computed from the observation
+    level, tiny-floored, identity where invalid, full-f32 matmuls), but the likelihood rows are computed from the observation
     chunk right here, so no (T, K) array feeds this phase. Per-row max
     shifts are dropped entirely: every consumer of Q renormalizes.
 
-    time_minor: obs_blocks arrives (D, n_blocks, S) (lane-dense layout —
-    see forward_backward_fused_twophase); chunks are transposed to rows
+    time_minor: obs_blocks arrives (D, n_blocks, S) (feature-major — see
+    forward_backward_fused_twophase); chunks are transposed to rows
     transiently.
     """
     K = A_tilde.shape[0]
     dtype = A_tilde.dtype
     eye = jnp.eye(K, dtype=dtype)
-    prec = lax.Precision.DEFAULT
+    prec = lax.Precision.HIGHEST  # DEFAULT is TF32 on the GPU
     tiny = jnp.finfo(dtype).tiny
     tail = (obs_blocks.shape[0],) if time_minor else obs_blocks.shape[2:]
 
@@ -178,16 +176,13 @@ def forward_backward_fused_twophase(
 
     stat_fn(gamma (n_blocks, K), rows) is reduced over all time steps,
     with ``stat_xs`` rows as operand (default: the observations — the
-    emission-stats case, where sharing the operand also shares its HBM
+    emission-stats case, where sharing the operand also shares its memory
     reads with the likelihood computation). Per-step kept-masks are not
     supported (exact full-chain E-steps only).
 
-    time_minor=True: ``obs`` arrives FEATURE-MAJOR as (D, T). TPU tiled
-    layouts pad a 2-D array's minor dimension to 128 lanes, so a
-    time-major (T, D=8) float chain occupies 16x its logical bytes in HBM
-    (f32[50M, 8] -> 25.6 GB — measured OOM); with time as the minor
-    dimension every full-T array in this function is lane-dense and the
-    Gaussian single-chip ceiling moves to T≈100M+. ell_fn/stat_fn still
+    time_minor=True: ``obs`` arrives FEATURE-MAJOR as (D, T), with time
+    the minor dimension of every full-T array in this function (whether
+    the GPU needs this layout is ROADMAP Queue 3's question). ell_fn/stat_fn still
     receive standard (N, D) rows (chunks are transposed transiently,
     O(T/chunks) at a time); stat_xs must be None in this mode.
     """
@@ -250,7 +245,7 @@ def forward_backward_fused_twophase(
     # (padded rows produce finite garbage likelihoods that every consumer
     # gates out via the valid mask, exactly as the non-fused tiers pad
     # likelihoods with ones). time_minor keeps time the MINOR axis of
-    # every full-T array (lane-dense under TPU tiling).
+    # every full-T array.
     if tm:
         obs_tr = jnp.concatenate(
             [obs[:, 1:], jnp.zeros(tail + (pad,), obs.dtype)], axis=1

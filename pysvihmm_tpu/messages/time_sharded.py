@@ -7,7 +7,7 @@ full-chain smoothing at T = 100k+ it would run a single sequential Cython
 loop. Here the chain is cut into D contiguous tiles, one per device on a
 ``time`` mesh axis, and smoothing is exact via a three-phase schedule:
 
-1. **Local tile products** (batched MXU work, no sequential chain): each
+1. **Local tile products** (batched matmuls, no sequential chain): each
    device forms its per-step transfer matrices S_t = A~ diag(lik_t) and
    tree-reduces them (log-depth, renormalized each level) into one K x K
    tile operator Q_d. Row-vector convention: alpha_t ∝ alpha_{t-1} @ S_t,
@@ -55,7 +55,7 @@ def _tree_product(S: jax.Array) -> jax.Array:
     """Left-to-right product of a stack of matrices, log-depth.
 
     S: (n, K, K) with product order S[0] @ S[1] @ ... @ S[n-1]. Each level
-    is ONE batched matmul (MXU-shaped) and is renormalized by its max to
+    is ONE batched matmul and is renormalized by its max to
     keep the geometric decay of sub-stochastic transfer products away from
     f32 underflow; the dropped scales cancel in the normalized boundary
     messages. Identity padding makes any n exact.
@@ -74,7 +74,7 @@ def _tree_product(S: jax.Array) -> jax.Array:
             preferred_element_type=S.dtype,
         )
         # tiny floor keeps an underflowed-to-zero product propagating
-        # zeros (clean -inf log_z) instead of 0/0 NaNs (ADVICE r4)
+        # zeros (clean -inf log_z) instead of 0/0 NaNs
         S = S / jnp.maximum(jnp.max(S, axis=(1, 2), keepdims=True), tiny)
     return S[0]
 
@@ -316,7 +316,7 @@ def time_sharded_long_chain_stats(
         )
         # stat_init seeds ONLY device 0: r.acc is psum-reduced over the
         # time axis below, so a replicated nonzero seed would be counted
-        # D times (ADVICE r4; latent while callers pass zero_stats)
+        # D times (latent while callers pass zero_stats)
         stat_init_d = (
             jax.tree.map(
                 lambda z: jnp.where(idx == 0, z, jnp.zeros_like(z)), stat_init
@@ -406,19 +406,17 @@ def time_sharded_fused_stats(
     stat_fn=None,
     stat_init=None,
     emit_argmax: bool = False,
-    time_minor: bool = False,  # obs arrives FEATURE-MAJOR (D, T) — the
-    #   lane-dense layout Gaussian chains need on TPU (stream_fused.py);
-    #   the time axis (now last) is what gets sharded
+    time_minor: bool = False,  # obs arrives FEATURE-MAJOR (D, T)
+    #   (stream_fused.py); the time axis (now last) is what gets sharded
 ):
-    """Likelihood-FUSED sharded streaming E-step — the multi-chip T≈250M+
-    route with the single-chip fused tier's memory profile per device.
+    """Likelihood-FUSED sharded streaming E-step — the multi-device T≈250M+
+    route with the single-device fused tier's memory profile per device.
 
     :func:`time_sharded_long_chain_stats` still materializes each tile's
     (T/D, K) likelihood; here every phase computes likelihoods per chunk
     from the raw observation tile (messages/stream_fused.py), so
-    per-device HBM is O(T/D · obs-dims) — one v5e chip holds a 100M-step
-    Gaussian tile, and a 4-chip slice the reference paper's full 250M
-    chromatin chain WITH headroom (SURVEY.md:284). ``emit_argmax``
+    per-device memory is O(T/D · obs-dims) — the route to the reference
+    paper's full 250M chromatin chain (SURVEY.md:284). ``emit_argmax
     additionally returns the full argmax-gamma decode, time-sharded
     (StreamStats.z (T,) int32) — the chromatin segmentation deliverable,
     distributed.

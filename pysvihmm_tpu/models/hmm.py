@@ -75,7 +75,7 @@ def make_prior(
 ) -> HMMParams:
     # Default to the session float dtype (f32; f64 under jax_enable_x64) so
     # oracle-parity tests really exercise f64 end to end instead of silently
-    # running the whole E-step in f32 params (ADVICE r3 medium).
+    # running the whole E-step in f32 params.
     if dtype is None:
         dtype = jax.dtypes.canonicalize_dtype(jnp.float64)
     if emission is GaussianNIW:

@@ -1,13 +1,13 @@
-"""Data-parallel inference over a device mesh: the TPU-native replacement
-for the reference's ``multiprocessing.Pool`` local-step fan-out.
+"""Data-parallel inference over a device mesh: the replacement for the
+reference's ``multiprocessing.Pool`` local-step fan-out.
 
 Reference call stack D (SURVEY.md §3): ``Pool.map(local_step, minibatch)``
 followed by a host-side stat reduce. Here the same shape is
 ``shard_map(vmap(local_step))`` over a 1-D ``data`` mesh axis with `psum`
-reducing the expected sufficient statistics over ICI — bit-equivalent to
-the single-device path (tested in tests/test_sharding.py) and scaling to
-multi-host meshes where the same `psum` rides ICI within a slice and DCN
-across slices (SURVEY.md §2.4/§5).
+reducing the expected sufficient statistics over the interconnect (NVLink
+between the cards of one host) — bit-equivalent to the single-device path
+(tested in tests/test_sharding.py) and scaling to multi-host meshes with
+the same `psum` (SURVEY.md §2.4/§5).
 
 Global parameters stay replicated (they are KB-scale); only sequences and
 their messages are sharded. This is the right layout for this model family:
@@ -41,9 +41,8 @@ def default_devices():
     """Devices on the platform computations will actually run on.
 
     Honors an explicitly configured ``jax_default_device`` (the test harness
-    pins CPU while a TPU plugin is registered — a bare ``jax.devices()``
-    would silently build 1-device TPU meshes there, making every
-    "multi-device" test vacuous); otherwise the default backend's devices.
+    pins the CPU — on a machine with a GPU a bare ``jax.devices()`` would
+    build GPU meshes there); otherwise all devices of the default backend.
     """
     dd = jax.config.jax_default_device
     platform = getattr(dd, "platform", None)
@@ -68,15 +67,19 @@ def replicate(tree, mesh: Mesh):
     return jax.device_put(tree, NamedSharding(mesh, P()))
 
 
-def sharded_local_step(params, emission, obs, mesh, method: str = "auto"):
-    """shard_map'd batch local step: per-shard vmapped FB, psum'd stats.
+def sharded_local_step(params, emission, obs, mesh, method: str = "auto",
+                       interpret: bool = False):
+    """shard_map'd batch local step: per-shard batched FB, psum'd stats.
 
     obs: (B, T, ...) with B divisible by mesh size. Returns LocalStats
     identical (up to float reduction order) to the single-device result.
+    ``interpret`` runs the kernel method in the Pallas interpreter (tests).
     """
 
     def local(p, o):
-        stats, _ = batch_local_step(p, emission, o, method, need_gamma=False)
+        stats, _ = batch_local_step(
+            p, emission, o, method, need_gamma=False, interpret=interpret
+        )
         return jax.tree.map(partial(jax.lax.psum, axis_name="data"), stats)
 
     return jax.shard_map(
@@ -84,8 +87,8 @@ def sharded_local_step(params, emission, obs, mesh, method: str = "auto"):
         mesh=mesh,
         in_specs=(P(), P("data")),
         out_specs=P(),
-        # pallas_call outputs don't carry mesh-axis variance (vma) metadata;
-        # the stats are psum-reduced to replicated regardless
+        # pallas_call outputs don't carry mesh-axis variance (vma)
+        # metadata; the stats are psum-reduced to replicated regardless
         check_vma=False,
     )(params, obs)
 
@@ -132,8 +135,8 @@ def make_dp_minibatch_svi_step(emission, cfg, num_seqs: int, mesh: Mesh,
         idx = jax.random.randint(key, (B_local,), 0, n_local)
         batch = obs_shard[idx]
 
-        # unified batched local step: resolves method="auto" (pallas on TPU,
-        # with packed emission stats) and already sums stats over the shard
+        # unified batched local step: resolves method="auto" (the kernel on
+        # a CUDA device) and already sums stats over the shard
         stats, _ = batch_local_step(params, emission, batch, method, need_gamma=False)
         return jax.tree.map(partial(jax.lax.psum, axis_name="data"), stats)
 
@@ -223,7 +226,7 @@ def make_dp_streamed_svi_step(emission, cfg, num_seqs: int, mesh: Mesh,
 
 def make_dp_metaobs_step(emission, cfg, chain_len: int, mesh: Mesh,
                          method: str = "auto"):
-    """Data-parallel meta-observation SVI: the direct TPU translation of the
+    """Data-parallel meta-observation SVI: the direct translation of the
     reference's Pool-parallel ``hmmsgd_metaobs`` engine. The chain is
     replicated (windows are gathered per device); the minibatch of blocks is
     split across the mesh, exactly like Pool tasks across workers.
@@ -239,9 +242,7 @@ def make_dp_metaobs_step(emission, cfg, chain_len: int, mesh: Mesh,
     if M % n_dev != 0:
         raise ValueError(f"minibatch {M} not divisible by mesh size {n_dev}")
     M_local = M // n_dev
-    # shared window planner (messages.plan_window): multiple-of-8 rounding
-    # for the pallas paths, then "auto" resolution against the final W
-    method, W, b_left = messages.plan_window(method, Lm, b, T)
+    method, W, b_left = messages.plan_window(method, Lm, b)
 
     scale_trans = (T - 1.0) / (M * max(Lm - 1, 1))
     scale_emit = num_blocks / M
@@ -256,8 +257,8 @@ def make_dp_metaobs_step(emission, cfg, chain_len: int, mesh: Mesh,
         maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + Lm)).astype(
             params.init.dtype
         )
-        # shared windowed local step (engines/base.py): pallas on TPU with
-        # packed gamma, scan elsewhere; trans_stats come back pair-gated by
+        # shared windowed local step (engines/base.py): the kernel on a
+        # CUDA device, scan elsewhere; trans_stats come back pair-gated by
         # the mask and summed over the shard
         emit_stats, trans_stats, gamma_at_start, log_c = windowed_local_step(
             params, emission, windows, maskf, offs, method

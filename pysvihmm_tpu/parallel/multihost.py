@@ -1,7 +1,7 @@
 """Multi-host runtime entry (SURVEY.md §2.4/§5 "distributed backend").
 
 The reference has no distributed backend at all (single process + fork);
-this module provides the pod-scale equivalent: `jax.distributed.initialize`
+this module provides the multi-host equivalent: `jax.distributed.initialize`
 bootstrapping, a global data mesh spanning hosts, and host-local sharding
 of big sequence datasets so a 1M-sequence corpus (BASELINE config 5) never
 materializes on one host.
@@ -24,8 +24,9 @@ def initialize_distributed(
 ) -> None:
     """Initialize the multi-host runtime. No-ops on a single process.
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    they can be passed explicitly for CPU/GPU multi-process testing.
+    Under a cluster manager JAX detects the three arguments from the
+    environment; elsewhere (one machine with several GPUs, CPU tests) pass
+    them explicitly, e.g. coordinator_address="localhost:<port>".
     ``initialization_timeout`` (seconds) bounds the coordinator handshake.
     """
     if num_processes is not None and num_processes <= 1:
@@ -47,7 +48,7 @@ def initialize_distributed(
         # idempotence: re-initialization of an already-running runtime is
         # fine; anything else on an EXPLICITLY multi-process request must
         # fail loudly — proceeding single-process would silently compute
-        # un-psummed (wrong) global stats (VERDICT r1 item 7).
+        # un-psummed (wrong) global stats.
         if "already initialized" in str(e).lower():
             return
         if explicit:

@@ -41,7 +41,7 @@ def shard_chain(
     """Place one chain with its TIME axis sharded over the mesh.
 
     time_minor=True shards the LAST axis of a feature-major (D, T) chain
-    (the lane-dense Gaussian layout — messages/stream_fused.py)."""
+    (messages/stream_fused.py)."""
     if time_minor and obs.ndim >= 2:
         spec = P(*(None,) * (obs.ndim - 1), axis)
     else:
@@ -91,13 +91,10 @@ def time_sharded_stream_stats(
     sweep on its tile seeded by one tiny boundary ``all_gather``
     (messages/time_sharded.py). impl="fused" (default) also computes
     likelihoods per chunk from the raw observation tile
-    (messages/stream_fused.py), so per-device HBM is O(T/D · obs-dims):
-    one v5e chip holds a 100M-step Gaussian tile (pass the chain
-    feature-major with time_minor=True — TPU tiling pads time-major
-    (T, 8) chains 16×), and a 4-chip slice the reference paper's full
-    T≈250M chromatin chain (SURVEY.md:284).
-    impl="twophase" keeps the r4 tier (per-tile (T/D, K) likelihood
-    materialized; single-chip tile bound T/D ~ 15M at K=64).
+    (messages/stream_fused.py), so per-device memory is O(T/D · obs-dims)
+    — the route to the reference paper's T≈250M chromatin chain
+    (SURVEY.md:284) on four cards. impl="twophase" materializes each
+    tile's (T/D, K) likelihood.
     """
     log_pi, log_A = expected_log_params(params)
     stat_fn = lambda g, y: emission_flat_stats(emission, params.emit, g, y)

@@ -1,14 +1,15 @@
 """Checkpoint / resume of training state (SURVEY.md §5).
 
 The reference keeps variational parameters only in memory (no persistence);
-for pod-scale elastic training we checkpoint the full device-side state
-pytree — global variational params, the SVI step counter (so the
-(t + tau)^(-kappa) schedule resumes correctly — BASELINE config 5), the PRNG
-key, and any adaptive-step-size state — via msgpack (flax.serialization).
-Writes are atomic (tmp + rename) so a preempted host never leaves a torn
-checkpoint. Orbax is available in the environment for larger deployments;
-this hand-rolled path has no async machinery to misbehave under restart
-tests and is itself round-trip tested.
+for elastic training we checkpoint the full device-side state pytree —
+global variational params, the SVI step counter (so the (t + tau)^(-kappa)
+schedule resumes correctly — BASELINE config 5), the PRNG key, and any
+adaptive-step-size state — as its flattened leaves in one numpy ``.npz``
+file (``leaf_0``, ``leaf_1``, ... in `jax.tree.leaves` order; the structure
+comes from the restore target). numpy stores every leaf's dtype and bytes
+as they are, so resume is bit-exact. Writes are atomic (tmp + rename) so a
+preempted host never leaves a torn checkpoint. Orbax (lazily imported,
+optional) is the tier for larger deployments.
 """
 
 from __future__ import annotations
@@ -18,57 +19,71 @@ from typing import Any
 
 import jax
 import numpy as np
-from flax import serialization
+
+SUFFIX = ".npz"
 
 
 def save(path: str, state: Any) -> None:
     """Atomically write a pytree checkpoint (host-local)."""
-    state_np = jax.tree.map(np.asarray, jax.device_get(state))
-    data = serialization.to_bytes(state_np)
+    leaves = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(state))]
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(data)
+        np.savez(f, **{f"leaf_{i}": x for i, x in enumerate(leaves)})
     os.replace(tmp, path)
+
+
+def load_leaves(path: str) -> list[np.ndarray]:
+    """The checkpoint's leaves in `jax.tree.leaves` order."""
+    with np.load(path) as data:
+        return [data[f"leaf_{i}"] for i in range(len(data.files))]
 
 
 def restore(path: str, target: Any) -> Any:
     """Load a checkpoint into the structure of ``target`` (same pytree)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    return serialization.from_bytes(target, data)
+    ref, treedef = jax.tree.flatten(target)
+    leaves = load_leaves(path)
+    if len(leaves) != len(ref):
+        raise ValueError(
+            f"checkpoint {path} holds {len(leaves)} leaves, target has {len(ref)}"
+        )
+    out = []
+    for got, want in zip(leaves, ref):
+        if got.shape != np.shape(want):
+            raise ValueError(f"checkpoint leaf {got.shape} != target {np.shape(want)}")
+        dtype = np.dtype(getattr(want, "dtype", np.asarray(want).dtype))
+        # numpy writes dtypes it does not know (bfloat16) as raw bytes
+        out.append(got.view(dtype) if got.dtype.kind == "V" else got)
+    return jax.tree.unflatten(treedef, out)
+
+
+def _steps(directory: str, prefix: str) -> dict[int, str]:
+    """{step: path} of the ``{prefix}{step}.npz`` checkpoints in directory."""
+    out = {}
+    if not os.path.isdir(directory):
+        return out
+    for name in os.listdir(directory):
+        if name.startswith(prefix) and name.endswith(SUFFIX):
+            try:
+                out[int(name[len(prefix) : -len(SUFFIX)])] = os.path.join(directory, name)
+            except ValueError:
+                continue
+    return out
 
 
 def latest_step_path(directory: str, prefix: str = "ckpt_") -> str | None:
-    """Find the highest-step checkpoint file ``{prefix}{step}.msgpack``."""
-    if not os.path.isdir(directory):
-        return None
-    best, best_step = None, -1
-    for name in os.listdir(directory):
-        if name.startswith(prefix) and name.endswith(".msgpack"):
-            try:
-                step = int(name[len(prefix) : -len(".msgpack")])
-            except ValueError:
-                continue
-            if step > best_step:
-                best, best_step = os.path.join(directory, name), step
-    return best
+    """Find the highest-step checkpoint file ``{prefix}{step}.npz``."""
+    steps = _steps(directory, prefix)
+    return steps[max(steps)] if steps else None
 
 
 def save_step(directory: str, step: int, state: Any, prefix: str = "ckpt_", keep: int = 3) -> str:
     """Save ``state`` as the step-numbered checkpoint and prune old ones."""
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"{prefix}{step}.msgpack")
+    path = os.path.join(directory, f"{prefix}{step}{SUFFIX}")
     save(path, state)
-    # prune
-    steps = []
-    for name in os.listdir(directory):
-        if name.startswith(prefix) and name.endswith(".msgpack"):
-            try:
-                steps.append(int(name[len(prefix) : -len(".msgpack")]))
-            except ValueError:
-                pass
+    steps = _steps(directory, prefix)
     for s in sorted(steps)[:-keep]:
-        os.remove(os.path.join(directory, f"{prefix}{s}.msgpack"))
+        os.remove(steps[s])
     return path
 
 
@@ -78,8 +93,8 @@ class OrbaxCheckpointer:
     Same role as :func:`save_step` / :func:`latest_step_path` / :func:`restore`
     but via ``orbax.checkpoint.CheckpointManager``: async writes, atomic
     finalization, retention, and multi-host coordination (every process
-    participates in the save; Orbax elects the writers) — use this tier on
-    pod slices, the msgpack tier for single-host runs and tests.
+    participates in the save; Orbax elects the writers) — use this tier for
+    multi-host jobs, the npz tier for single-host runs and tests.
 
         ckpt = OrbaxCheckpointer(directory, keep=3)
         ckpt.save(step, state)            # non-blocking

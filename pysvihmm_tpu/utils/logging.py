@@ -45,6 +45,6 @@ class MetricsLogger:
 
 
 def profile_trace(log_dir: str):
-    """Context manager starting a jax.profiler trace (TPU timeline in
+    """Context manager starting a jax.profiler trace (device timeline in
     TensorBoard) around a hot region — SURVEY.md §5 tracing subsystem."""
     return jax.profiler.trace(log_dir)

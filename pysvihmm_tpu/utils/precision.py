@@ -1,56 +1,32 @@
 """Matmul precision policy for inference numerics.
 
-On TPU, JAX's default matmul precision lowers f32 matmuls/einsums to a
-single bf16 MXU pass (~8 mantissa bits). That is fine for neural-net
-training but NOT for variational inference message passing: at BASELINE
-config 1 (K=4, D=2, 100 x T=200 batch VB) the default precision diverged
-the coordinate-ascent ELBO trajectory by 6e-2 relative from the float64
-oracle (it converged to a different optimum), vs 2e-5 under f32 precision
-(scripts/bench_convergence.py measures this).
+Variational message passing compounds matmul rounding along the chain, and
+its likelihood matmuls feed exp(): an f32 product is only as good as the
+precision it runs at. On an H100, XLA lowers an f32 dot at JAX's default
+precision, and also at ``"high"``, to TF32 (a 10-bit mantissa, 2^-11
+relative rounding of each operand). Measured on the E-step's likelihood
+form feats (1M x 45) @ W (45 x 64) (GaussianNIW, D=8, K=64) against
+float64 (scripts/check_matmul_precision.py):
 
-Policy (each tier measured at the production E-step K=64/T=1k/B=1024):
+    precision           optimized HLO   max rel err   max abs err (nats)
+    default             Triton gemm     2.8e-4        3.1
+    "high"              cuBLAS gemm     2.8e-4        3.1
+    "highest"           cuBLAS gemm     3.0e-7        3.4e-3
+    TF32_TF32_F32_X3    Triton gemm     2.1e-7        2.3e-3
+    BF16_BF16_F32_X3    Triton gemm     5.8e-6        6.3e-2
 
-  * ERROR-COMPOUNDING ops — the T-step chain recursions (scan/assoc/
-    blocked FB, Viterbi, and the Pallas kernels' chain dots) and the
-    cancellation-prone emission quadratic forms: full f32. The engine
-    entry points get this via the `f32_matmuls` decorator
-    ("float32" = 6 bf16 passes); the Pallas kernels set
-    `precision=HIGHEST` explicitly. These ops are latency-bound, so the
-    extra passes cost ~5%, not the matmul-bound ~2-3x.
-  * Emission sufficient-stat sums: ALSO full f32 (`Precision.HIGHEST`),
-    despite being one-shot bulk contractions. The original policy ran
-    them at 1-pass bf16 on a sign-symmetry argument (~1e-5 relative
-    error in the summed stats), but that argument is wrong for the
-    y (x) y second moments: the yy-diagonal terms are all-positive (no
-    cancellation of rounding bias), the stats get amplified by the SVI
-    scale factor (dataset/minibatch, e.g. 62.5x) at rho ~ 1, and the NIW
-    posterior's psi = eta3 - kappa m m^T sits a thin PSD margin above
-    that noise for weakly-populated states. Measured failure: K=64/D=8
-    subchain SVI on-chip produced a finite-but-indefinite psi after ONE
-    step -> NaN likelihoods on the next. The f32 stat matmuls cost ~2%
-    end-to-end (they are overlappable MXU throughput, not chain latency).
-  * The expected-log-likelihood einsum feeding the FB chain runs at
-    "high" (3 passes, ~5e-7 relative): its error is injected once per
-    (t, k) but multiplies through exp() into the chain, so 1-pass bf16
-    (4e-3 x |L| ~ 0.1 absolute in log space) is unacceptable, while
-    6-pass buys nothing over 3-pass there.
+(default and "high" give the same error, the size of TF32 rounding.)
 
-Fused-kernel revision (round 3, measured): Mosaic exposes no native
-3-pass HIGH in-kernel, so the fused kernels long ran every dot at
-HIGHEST. messages/pallas_fb.py::_kdot now emulates HIGH as three native
-bf16 MXU passes over bf16-split operands ("bf16x3"), and A SAME-CHIP A/B
-(bench_results/r3_tpu.jsonl) made it the fused-path production default
-for ALL THREE tiers — including the chain recursions, whose "latency-
-bound so passes are ~free" assumption above turned out wrong in the
-fused kernels (chain tier alone: 89.8k -> 97.1k seq/s; all three tiers:
-107.6k, +20%). The measured per-tier error vs HIGHEST (chain 4e-6, stats
-2e-6, likelihood 2e-4 max-normalized) sits far below both documented
-failure thresholds above; full-fit validation in
-tests/test_precision.py::TestKernelPrecisionKnobs. The stat-sum PSD
-hazard was a 1-PASS bf16 failure (4e-3-level noise x 62.5 SVI scale);
-bf16x3's 2e-6 keeps a ~1000x margin. Env knobs PYSVIHMM_KERNEL_PREC /
-PYSVIHMM_LL_PREC / PYSVIHMM_STATS_PREC = "highest" restore exact-f32
-kernels (messages/pallas_fb.py::kernel_precisions).
+An error of 3 nats in a log-likelihood is a factor e^3 in a message, so
+neither default nor "high" is acceptable anywhere on the inference path.
+Full f32 ("highest") meets the ~5e-7 relative budget of a one-shot
+likelihood form and costs little: these products are small beside the
+sequential recursion.
+
+Policy: every engine entry point traces under `f32_matmuls` ("float32":
+IEEE f32 on the GPU, and the CPU executes f32 exactly anyway). The
+forward-backward kernels (messages/pallas_fb.py) name their own dot
+precision, since a Pallas kernel does not see this context.
 """
 
 from __future__ import annotations
@@ -61,11 +37,11 @@ import jax
 
 
 def f32_matmuls(fn):
-    """Trace ``fn`` under full-f32 ("float32", 6-pass) matmul precision.
+    """Trace ``fn`` under full-f32 ("float32") matmul precision.
 
     Composes with `jax.jit` (apply below the jit decorator: the context
     governs the ops traced inside). Explicit per-op `precision=` arguments
-    and inner `bulk_precision()` contexts still win where set.
+    still win where set.
     """
 
     @functools.wraps(fn)
@@ -74,21 +50,3 @@ def f32_matmuls(fn):
             return fn(*args, **kwargs)
 
     return wrapper
-
-
-def bulk_precision():
-    """Context for throughput-bound one-shot contractions: 3-pass "high".
-
-    Use around ops whose rounding does not compound (likelihood forms at
-    production scale); see the module docstring for the error analysis.
-    """
-    return jax.default_matmul_precision("high")
-
-
-def xla_tier(tier):
-    """Map an in-kernel precision spec (lax.Precision or "bf16x3") to the
-    equivalent XLA dot precision for ops OUTSIDE the Pallas kernels:
-    "bf16x3" is the in-kernel emulation of XLA's native 3-pass HIGH."""
-    if tier == "bf16x3":
-        return jax.lax.Precision.HIGH
-    return tier

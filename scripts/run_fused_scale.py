@@ -1,9 +1,8 @@
 """Likelihood-fused streaming E-step + decode at the paper's flagship scale.
 
-Round-5 successor to run_longchain_scale.py: the fused tier
-(messages/stream_fused.py) computes likelihoods per chunk from raw
-observations and rematerializes alpha in the backward pass, so one chip's
-ceiling is set by the OBSERVATIONS (T·D floats / T int tokens), not the
+The fused tier (messages/stream_fused.py) computes likelihoods per chunk
+from raw observations and rematerializes alpha in the backward pass, so
+one card's ceiling is set by the OBSERVATIONS (T·D floats / T int tokens), not the
 (T, K) likelihood array — the regime of the reference paper's T≈250M
 chromatin experiment (Foti et al. 2014 §4, SURVEY.md:284), which also ends
 in a SEGMENTATION: the streaming decode phase emits the full argmax-gamma
@@ -11,7 +10,7 @@ state path and scores full-chain Hamming against generator truth.
 
 Phases (one JSON line each):
   exact_fused    — jitted fused streaming E-step: log_z, wall, steps/s
-  exact_twophase — optional A/B vs the r4 (T,K)-materializing tier
+  exact_twophase — optional A/B vs the (T,K)-materializing tier
   subchain_svi   — buffered-subchain SVI fit (the paper's estimator)
   fused_decode   — full-chain streaming decode + FULL-chain Hamming
 
@@ -30,8 +29,6 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(Path(__file__).resolve().parent.parent / ".jax_cache"))
 
 import numpy as np
 
@@ -68,6 +65,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import jax
+
+    from pysvihmm_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from pysvihmm_tpu.data.synthetic import (
@@ -156,10 +157,9 @@ def main(argv=None):
                           "cache": args.data_cache}), flush=True)
         return
 
-    # Gaussian chains go to the device FEATURE-MAJOR (D, T): TPU tiling
-    # pads a (T, 8) f32 array's minor dim to 128 lanes (16x HBM — a
-    # T=50M chain OOMs at 25.6 GB), while (8, T) is lane-dense. The SVI
-    # phase samples subchains, so it gets a bounded time-major head.
+    # Gaussian chains go to the device FEATURE-MAJOR (D, T) (the layout
+    # ROADMAP Queue 3 asks to re-measure on the GPU). The SVI phase
+    # samples subchains, so it gets a bounded time-major head.
     time_minor = args.family == "gaussian"
     if time_minor:
         chain = jnp.asarray(np.ascontiguousarray(obs_np.T))  # (D, T)

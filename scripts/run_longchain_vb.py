@@ -1,8 +1,7 @@
 """Exact full-chain VB ITERATIONS at the fused streaming tier's scale.
 
-The r4 milestone was exact full-chain VB at T=1M (0.113 s/iter); the
-fused tier moves the whole coordinate-ascent loop to T=100M on one chip:
-each iteration is one exact streaming E-step (no (T, K) likelihood, no
+The fused streaming tier runs the whole coordinate-ascent loop on one
+long chain (T up to 10^8 on one card): each iteration is one exact streaming E-step (no (T, K) likelihood, no
 gamma) + conjugate M-step. Prints one JSON line with the per-iteration
 ELBO trajectory (strict coordinate-ascent monotonicity is asserted) and
 steady-state s/iteration.
@@ -16,14 +15,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(Path(__file__).resolve().parent.parent / ".jax_cache"))
 
 import numpy as np
 
@@ -40,6 +36,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import jax
+
+    from pysvihmm_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from pysvihmm_tpu.distributions import GaussianNIW
@@ -67,11 +67,9 @@ def main(argv=None):
         e = float(e)  # device_get forces completion
         walls.append(time.perf_counter() - t0)
         elbos.append(e)
-    # Coordinate ascent is exactly monotone; on chip the ELBO ESTIMATE
-    # carries the production likelihood-tier noise (~1e-3 relative band,
-    # BASELINE.md round-5 section), so successive-iteration wobble inside
-    # that band is measurement noise, not an ascent failure. Report the
-    # worst relative drop and assert it stays inside the band.
+    # Coordinate ascent is exactly monotone; the f32 ELBO of a 10^8-step
+    # chain still wobbles in its last digits, so report the worst relative
+    # drop and assert it stays far inside 1e-3.
     max_drop = max(
         [0.0] + [(a - b) / abs(a) for a, b in zip(elbos[:-1], elbos[1:])]
     )

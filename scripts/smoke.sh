@@ -5,7 +5,8 @@
 #   messages       - scan/assoc/blocked FB parity vs the f64 oracle
 #   distributions  - conjugate-family golden tests vs scipy closed forms
 #   native_ext     - the C forward-backward extension (built by conftest)
-#   tpu_lowering   - AOT Mosaic lowering of the fused kernels (no chip needed)
+#   fb_kernel      - the forward-backward kernel (interpreter) vs the f64
+#                    oracle, and its lowering for CUDA (no card needed)
 #   smoke          - one tiny end-to-end engine fit per family
 set -e
 cd "$(dirname "$0")/.."
@@ -13,6 +14,6 @@ exec python -m pytest \
     tests/test_messages.py \
     tests/test_distributions.py \
     tests/test_native_ext.py \
-    tests/test_tpu_lowering.py \
+    tests/test_fb_kernel.py \
     tests/test_smoke.py \
     -q "$@"

@@ -1,7 +1,7 @@
 """Build the C forward-backward oracle extension in place, mirroring the
 reference's ``python setup.py build_ext --inplace`` workflow (SURVEY.md §2.2
 "Build"). The package works without it (pure-NumPy fallback in
-oracle/numpy_ref.py; the TPU compute path never uses it).
+oracle/numpy_ref.py; the device compute path never uses it).
 """
 
 from setuptools import Extension, setup

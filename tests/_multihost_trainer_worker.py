@@ -17,7 +17,7 @@ the final state. Modes:
 The parent asserts resume == ref bit-exactly: checkpoint restore ordering
 vs `jax.distributed.initialize`, replicated-state recommitment, and loader
 shard re-derivation are all on the line (engines/trainer.py multi-host
-contract; VERDICT r4 weak #4).
+contract).
 """
 
 import os

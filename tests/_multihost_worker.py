@@ -15,7 +15,7 @@ Each process owns `local_devices` virtual CPU devices; together they form a
 The parent test runs the identical program single-process on the same
 number of virtual devices and asserts the results agree — the only way to
 catch process-major-ordering / un-psummed-stats bugs without a pod
-(VERDICT r1 item 5; SURVEY.md §2.4 distributed backend row).
+(SURVEY.md §2.4 distributed backend row).
 """
 
 import os

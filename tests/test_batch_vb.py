@@ -59,7 +59,7 @@ class TestGaussianBatchVB:
         assert best < 0.05, f"hamming {best}"
 
     def test_elbo_monotone_f32(self):
-        """Monotonicity also holds in float32 (TPU compute dtype) within noise."""
+        """Monotonicity also holds in float32 (the device compute dtype) within noise."""
         K, D, B, T = 4, 2, 10, 100
         obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, B, T)
         prior = make_prior(K, GaussianNIW, obs_dim=D)

@@ -7,6 +7,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu.distributions import GaussianNIW
@@ -31,7 +32,7 @@ class TestCheckpoint:
         cfg = svi.SVIConfig(batch_size=4, subchain_len=50, buffer=5)
         state, _ = svi.fit(state, prior, chain, GaussianNIW, cfg, num_steps=10)
 
-        path = str(tmp_path / "ckpt.msgpack")
+        path = str(tmp_path / "ckpt.npz")
         checkpoint.save(path, state)
         fresh = svi.init_state(params, jax.random.PRNGKey(99))
         restored = checkpoint.restore(path, fresh)
@@ -50,7 +51,7 @@ class TestCheckpoint:
 
         s_half = svi.init_state(params, jax.random.PRNGKey(3))
         s_half, _ = svi.fit(s_half, prior, chain, GaussianNIW, cfg, num_steps=5)
-        path = str(tmp_path / "ckpt.msgpack")
+        path = str(tmp_path / "ckpt.npz")
         checkpoint.save(path, s_half)
         restored = checkpoint.restore(path, svi.init_state(params, jax.random.PRNGKey(0)))
         resumed, _ = svi.fit(restored, prior, chain, GaussianNIW, cfg, num_steps=5)
@@ -66,15 +67,52 @@ class TestCheckpoint:
         for s in (1, 2, 3, 4, 5):
             checkpoint.save_step(d, s, state, keep=3)
         names = sorted(os.listdir(d))
-        assert names == ["ckpt_3.msgpack", "ckpt_4.msgpack", "ckpt_5.msgpack"]
-        assert checkpoint.latest_step_path(d).endswith("ckpt_5.msgpack")
+        assert names == ["ckpt_3.npz", "ckpt_4.npz", "ckpt_5.npz"]
+        assert checkpoint.latest_step_path(d).endswith("ckpt_5.npz")
 
     def test_atomic_no_torn_file(self, tmp_path):
         chain, prior, params = _setup()
         state = svi.init_state(params, jax.random.PRNGKey(5))
-        path = str(tmp_path / "c.msgpack")
+        path = str(tmp_path / "c.npz")
         checkpoint.save(path, state)
         assert not os.path.exists(path + ".tmp")
+
+
+class TestNpzFormat:
+    """The numpy format holds any pytree of arrays bit-exactly, with no
+    serialization library beyond numpy."""
+
+    @pytest.mark.parametrize(
+        "state",
+        [
+            {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.int32(7)},
+            (np.array([1.5, -0.0, np.inf], np.float64), [np.uint32(3), np.zeros((0, 2))]),
+            {"bf16": jnp.asarray([1.0, 2.5, -3.0], jnp.bfloat16), "key": jax.random.PRNGKey(5)},
+            svi.SVIState,
+        ],
+        ids=["dict", "nested_seq", "bf16_and_key", "svi_state"],
+    )
+    def test_roundtrip_bit_exact(self, tmp_path, state):
+        if state is svi.SVIState:
+            _, _, params = _setup()
+            state = svi.init_state(params, jax.random.PRNGKey(6))
+        path = str(tmp_path / "s.npz")
+        checkpoint.save(path, state)
+        zeros = jax.tree.map(lambda x: np.zeros_like(np.asarray(x)), state)
+        restored = checkpoint.restore(path, zeros)
+        assert jax.tree.structure(restored) == jax.tree.structure(zeros)
+        for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()
+
+    def test_restore_rejects_other_structure(self, tmp_path):
+        path = str(tmp_path / "s.npz")
+        checkpoint.save(path, {"a": np.ones(3), "b": np.ones(2)})
+        with pytest.raises(ValueError):
+            checkpoint.restore(path, {"a": np.ones(3)})
+        with pytest.raises(ValueError):
+            checkpoint.restore(path, {"a": np.ones(3), "b": np.ones(4)})
 
 
 class TestOrbaxCheckpointer:

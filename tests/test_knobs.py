@@ -1,86 +1,15 @@
-"""Combined env-knob support matrix smoke test (VERDICT r4 weak #6).
-
-The framework's PYSVIHMM_* env knobs fall into three classes (inventory:
-docs/DESIGN.md "Env-knob support matrix"): production DEFAULTS that pick
-measured-fastest routes, MEASUREMENT knobs preserving A/B-tested rejected
-routes, and test/infra toggles. Most production knobs have dedicated
-tests (test_precision.py, test_pallas.py, test_duplex.py); this module
-closes the gap for the remaining measurement knobs with one parametrized
-parity sweep: every knobbed route must still EXECUTE and agree with the
-default route on the quantities it contracts to preserve. A knob whose
-guarded code path bit-rots now fails here, not in a future bench session.
+"""Env-knob smoke test: the remaining PYSVIHMM_* environment knob that
+selects a route (PYSVIHMM_STREAM_IMPL, the long-chain tier) must execute
+and agree with the other tiers when chosen through the environment.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu.distributions import GaussianNIW
-from pysvihmm_tpu.engines.base import batch_local_step, long_chain_local_stats
+from pysvihmm_tpu.engines.base import long_chain_local_stats
 from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-
-@pytest.fixture(autouse=True)
-def _exact_kernels(monkeypatch):
-    for var in ("PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC",
-                "PYSVIHMM_STATS_PREC"):
-        monkeypatch.setenv(var, "highest")
-
-
-def _problem():
-    K, D, B, T = 16, 4, 8, 48
-    obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(5), K, D, B, T)
-    prior = make_prior(K, GaussianNIW, obs_dim=D)
-    params = init_params(jax.random.PRNGKey(6), prior, GaussianNIW, obs)
-    return params, obs
-
-
-def _estep(monkeypatch, env):
-    for var in ("PYSVIHMM_SLOT_FEATS", "PYSVIHMM_INKERNEL_FEATS",
-                "PYSVIHMM_PAD128_FEATS", "PYSVIHMM_PADLG_FEATS",
-                "PYSVIHMM_BLOCKED_FEATS", "PYSVIHMM_OBS_BARRIER",
-                "PYSVIHMM_FUSED_TILES", "PYSVIHMM_DUPLEX",
-                "PYSVIHMM_GAMMA_SEL"):
-        monkeypatch.delenv(var, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    params, obs = _problem()
-    stats, _ = batch_local_step(
-        params, GaussianNIW, obs, "pallas_fused", need_gamma=False
-    )
-    return stats
-
-
-# Feature-route measurement knobs: each guards a measured-and-rejected
-# (or tuning) alternative of the fused E-step's feature construction;
-# all are sum-consumer-exact vs the dense default.
-FEATURE_KNOBS = [
-    {"PYSVIHMM_SLOT_FEATS": "1"},
-    {"PYSVIHMM_INKERNEL_FEATS": "1"},
-    {"PYSVIHMM_PAD128_FEATS": "1"},
-    {"PYSVIHMM_PADLG_FEATS": "1"},
-    {"PYSVIHMM_BLOCKED_FEATS": "1"},  # permutes per-seq order; sums exact
-    {"PYSVIHMM_OBS_BARRIER": "1"},
-    {"PYSVIHMM_FUSED_TILES": "1,16"},  # packed rows R=1 at B=8/K=16
-]
-
-
-@pytest.mark.parametrize(
-    "env", FEATURE_KNOBS, ids=[next(iter(e)) for e in FEATURE_KNOBS]
-)
-def test_feature_route_knobs_match_default(monkeypatch, env):
-    ref = _estep(monkeypatch, {})
-    got = _estep(monkeypatch, env)
-    np.testing.assert_allclose(float(got.log_z), float(ref.log_z), rtol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(got.trans), np.asarray(ref.trans), rtol=1e-4, atol=1e-5
-    )
-    for a, b in zip(jax.tree.leaves(ref.emit), jax.tree.leaves(got.emit)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = np.abs(a).max() + 1e-12
-        assert np.abs(a - b).max() / scale < 1e-4
 
 
 def test_stream_impl_env_resolution(monkeypatch):

@@ -160,7 +160,7 @@ class TestStateShardedFB:
     # NOTE: (1, 9, 4) deliberately avoided — jax/jaxlib 0.9.0's XLA:CPU
     # miscompiles a jitted float64 reverse-scan at exactly T=9, K=4 (the
     # 8-step x 4-wide f64 unroll edge; eager is exact, jit returns garbage).
-    # Upstream bug, reproduced minimally; production paths are f32/TPU.
+    # Upstream bug, reproduced minimally; production paths are f32.
     @pytest.mark.parametrize("n_dev,T,K", [(4, 30, 8), (8, 20, 16), (2, 11, 6), (1, 12, 4)])
     def test_matches_scan(self, n_dev, T, K, enable_x64):
         from pysvihmm_tpu.messages.state_sharded import state_sharded_forward_backward
@@ -311,7 +311,7 @@ class TestTimeShardedEngine:
         )
         # f32 trajectories accumulated in different reduction orders across
         # 8 shards: observed ~2e-5 relative drift after 10 iters; 1e-4 keeps
-        # the margin >=4x off the observed error (VERDICT r1 item 5)
+        # the margin >=4x off the observed error
         np.testing.assert_allclose(np.array(ts_elbos), np.array(ref_elbos), rtol=1e-4)
 
 
@@ -366,7 +366,7 @@ class TestShardedStream:
 
     def test_nonzero_stat_init_counted_once(self, enable_x64):
         """A nonzero stat_init must enter the psum-reduced accumulator
-        exactly ONCE, not once per time-axis device (ADVICE r4: the seed
+        exactly ONCE, not once per time-axis device (the seed
         was replicated to every device's sweep and psum-counted D times)."""
         from pysvihmm_tpu.messages.time_sharded import time_sharded_long_chain_stats
 
@@ -434,8 +434,8 @@ class TestShardedStream:
         assert (np.array(got.z) == z_ref).all()
 
     def test_fused_time_minor_matches_time_major(self, enable_x64):
-        """The sharded fused tier with a feature-major (D, T) chain (the
-        lane-dense TPU layout) reproduces the time-major run exactly,
+        """The sharded fused tier with a feature-major (D, T) chain
+        reproduces the time-major run exactly,
         including the sharded decode."""
         from pysvihmm_tpu.messages.time_sharded import time_sharded_fused_stats
 
@@ -507,7 +507,7 @@ class TestShardedStream:
         assert (np.array(z_sh) == np.array(z_ref)).all()
 
     def test_fused_sharded_T1M_f32(self):
-        """VERDICT r4 #4: the sharded streaming tier at NON-TOY scale —
+        """The sharded streaming tier at NON-TOY scale —
         T=1M on the 8-device virtual mesh, f32, one full VB step, parity
         with the single-device fused tier to f32 tolerance."""
         from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
@@ -676,6 +676,35 @@ class TestBlockedStream:
         got = hamming_error_long(jnp.asarray(est), jnp.asarray(true), 4)
         np.testing.assert_allclose(got, ref, atol=1e-12)
 
+    @pytest.mark.parametrize("K,self_prob", [(4, 0.8), (7, 0.95), (64, 0.8)])
+    def test_sticky_state_sampler(self, K, self_prob):
+        """The parallel sticky-chain sampler (a modular prefix sum of jump
+        offsets): empirical transitions match _sticky_transitions, the
+        initial state is uniform, and the chain generator's observations
+        follow their states."""
+        from pysvihmm_tpu.data.synthetic import (
+            _sticky_transitions,
+            gen_gaussian_chain,
+            sample_sticky_states,
+        )
+
+        T = 300_000
+        z = np.asarray(sample_sticky_states(jax.random.PRNGKey(K), K, self_prob, T))
+        assert z.shape == (T,) and z.dtype == np.int32 and 0 <= z.min() and z.max() < K
+        C = np.zeros((K, K))
+        np.add.at(C, (z[:-1], z[1:]), 1)
+        P = C / C.sum(1, keepdims=True)
+        A = np.asarray(_sticky_transitions(K, self_prob))
+        assert np.abs(np.diag(P) - self_prob).max() < 0.02
+        assert np.abs(P - A).max() < 0.02
+        starts = [int(sample_sticky_states(jax.random.PRNGKey(s), K, self_prob, 2)[0])
+                  for s in range(200)]
+        assert len(set(starts)) > K // 2  # not stuck on one initial state
+        y, zc, tp = gen_gaussian_chain(jax.random.PRNGKey(1), K, 3, 1000, cov_scale=0.01)
+        mu = np.asarray(tp.theta[0])
+        assert y.shape == (1000, 3)
+        assert np.abs(np.asarray(y) - mu[np.asarray(zc)]).max() < 1.0
+
     def test_fused_remat_equals_store(self, enable_x64):
         """The rematerializing backward pass (alpha checkpoints, per-chunk
         recompute) must be bit-for-tolerance the stored-alpha path."""
@@ -711,9 +740,8 @@ class TestBlockedStream:
 
     @pytest.mark.parametrize("store", [True, False])
     def test_time_minor_layout_parity(self, store, enable_x64):
-        """The feature-major (D, T) observation layout — required on TPU
-        where a time-major (T, 8) chain pads 16x in HBM — must reproduce
-        the time-major results exactly (stats, log_z, decode)."""
+        """The feature-major (D, T) observation layout must reproduce the
+        time-major results exactly (stats, log_z, decode)."""
         from pysvihmm_tpu.messages.stream_fused import (
             forward_backward_fused_twophase,
         )

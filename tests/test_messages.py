@@ -49,7 +49,7 @@ class TestAgainstOracle:
             np.testing.assert_allclose(float(fb.log_z), lz_bf, rtol=1e-9)
 
     def test_float32_accuracy(self, problem):
-        """f32 (TPU compute dtype) within tolerance of the f64 oracle."""
+        """f32 (the device compute dtype) within tolerance of the f64 oracle."""
         log_pi, log_A, log_lik = problem
         _, _, gam, xi, lz = oracle.forward_backward(log_pi, log_A, log_lik)
         for method in ["scan", "assoc"]:

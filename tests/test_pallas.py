@@ -1,5 +1,6 @@
-"""Pallas fused-FB kernel tests (interpret mode on CPU; the same kernel
-compiles via Mosaic on TPU — exercised by bench.py and the TPU drive).
+"""Forward-backward kernel tests (messages/pallas_fb.py) in the Pallas
+interpreter on the CPU; the same kernels compile through Triton on a CUDA
+device (tests/test_gpu_kernels.py, run by chip_smoke.py).
 """
 
 import jax
@@ -12,20 +13,6 @@ from pysvihmm_tpu.messages.pallas_fb import pallas_forward_backward_batched
 
 
 rng = np.random.default_rng(21)
-
-
-@pytest.fixture(autouse=True)
-def _exact_kernels(monkeypatch):
-    """Pin the engine-resolved kernel precision tiers to exact f32.
-
-    These tests verify kernel MATH against scan at tight tolerances; the
-    production default ("bf16x3" 3-pass HIGH emulation, ~1e-3-level on
-    the likelihood tier) is covered separately with its own measured
-    bounds in tests/test_precision.py::TestKernelPrecisionKnobs.
-    """
-    for var in ("PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC",
-                "PYSVIHMM_STATS_PREC"):
-        monkeypatch.setenv(var, "highest")
 
 
 def problem(B, T, K):
@@ -81,23 +68,22 @@ class TestPallasFB:
         """e_step_batched(pallas) == e_step_batched(scan) incl. weights."""
         log_pi, log_A, ll = problem(4, 32, 4)
         w = jnp.array((rng.random((4, 32)) > 0.2).astype(np.float32))
-        a = messages.e_step_batched(log_pi, log_A, ll, weights=w, method="pallas")
+        a = messages.e_step_batched(
+            log_pi, log_A, ll, weights=w, method="pallas", interpret=True
+        )
         b = messages.e_step_batched(log_pi, log_A, ll, weights=w, method="scan")
         np.testing.assert_allclose(np.array(a.trans_stats), np.array(b.trans_stats), atol=2e-5)
         np.testing.assert_allclose(np.array(a.gamma), np.array(b.gamma), atol=2e-6)
 
-    @pytest.mark.parametrize("tiles", [(4, 8), (2, 16), (1, 32)])
+    @pytest.mark.parametrize("tiles", [16, 32, 64])
     def test_tiles_override_matches_scan(self, tiles):
-        """Explicit (row_tile, time_tile) overrides agree with the scan path
-        (the autotune harness and large-batch configs rely on this knob)."""
-        from pysvihmm_tpu.messages.pallas_fb import _choose_packing
-
-        B, T, K = 16, 64, 32  # P = 4 packing => R = 4 rows
+        """Every sequence-block size agrees with the scan path, including
+        blocks larger than the batch (all but a few rows padded)."""
+        B, T, K = 40, 64, 32
         log_pi, log_A, ll = problem(B, T, K)
         ref = jax.vmap(lambda l: messages.forward_backward(log_pi, log_A, l))(ll)
-        assert B // _choose_packing(B, K) == 4
         fb = pallas_forward_backward_batched(
-            log_pi, log_A, ll, interpret=True, tiles=tiles
+            log_pi, log_A, ll, interpret=True, block_b=tiles
         )
         np.testing.assert_allclose(np.array(fb.gamma), np.array(ref.gamma), atol=2e-6)
         np.testing.assert_allclose(
@@ -105,14 +91,16 @@ class TestPallasFB:
         )
         np.testing.assert_allclose(np.array(fb.log_z), np.array(ref.log_z), rtol=2e-6)
 
-    def test_untileable_rows_raise(self):
-        """R > 1024 with no 128-multiple divisor and an over-budget whole-T
-        tile must fail loudly instead of silently unrolling T steps
-        in-kernel (ADVICE r1: _choose_tiles fallback compile blowup)."""
-        from pysvihmm_tpu.messages.pallas_fb import _choose_tiles
+    @pytest.mark.parametrize(
+        "B,K,expect", [(1, 2, (16, 16)), (16, 64, (16, 64)), (17, 5, (32, 16)),
+                       (1024, 64, (1024, 64)), (3, 100, (16, 128))]
+    )
+    def test_padded_shapes(self, B, K, expect):
+        """Batch rounded up to whole 16-row blocks, states to a power of
+        two of at least 16 (the smallest dot the Triton route takes)."""
+        from pysvihmm_tpu.messages.pallas_fb import padded_shapes
 
-        with pytest.raises(ValueError, match="no bounded"):
-            _choose_tiles(1030, 1000, 128)
+        assert padded_shapes(B, K) == expect
 
     def test_stats_sum_properties(self):
         log_pi, log_A, ll = problem(4, 40, 6)
@@ -126,52 +114,23 @@ class TestPallasFB:
         )
 
     def test_auto_method_resolution(self, monkeypatch):
-        """Engines default to method="auto": pallas on TPU, scan elsewhere
-        (resolved at trace time — messages.resolve_method)."""
-        from pysvihmm_tpu.messages import pallas_fb, resolve_method
+        """Engines default to method="auto": the kernel on a CUDA device,
+        scan elsewhere (resolved at trace time — messages.resolve_method)."""
+        from pysvihmm_tpu.messages import resolve_method
 
         assert resolve_method("auto") == "scan"  # CPU test harness
         assert resolve_method("pallas") == "pallas"  # explicit passes through
         assert resolve_method("blocked") == "blocked"
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        # production default on TPU: the fully-fused kernels (measured
-        # fastest — BASELINE.md)
-        assert resolve_method("auto") == "pallas_fused"
-        # shape-aware fallback: a chain length with no Mosaic-legal bounded
-        # time tile (multiple-of-8 divisor <= 32, or whole-axis T <= 32)
-        # would force the kernels to statically unroll the whole time axis
-        # (compile blow-up), so "auto" picks scan for it
-        assert resolve_method("auto", time_len=71) == "scan"  # prime
-        assert resolve_method("auto", time_len=37 * 41) == "scan"
-        assert resolve_method("auto", time_len=70) == "scan"  # 14 is illegal
-        assert resolve_method("auto", time_len=80) == "pallas_fused"
-        assert resolve_method("auto", time_len=31) == "pallas_fused"
-        # explicit pallas is honored even for awkward lengths
-        assert resolve_method("pallas", time_len=71) == "pallas"
-        # env override flips what "auto" resolves to on TPU
-        monkeypatch.setenv("PYSVIHMM_ESTEP_METHOD", "pallas")
+        monkeypatch.setattr(messages, "on_cuda", lambda: True)
         assert resolve_method("auto") == "pallas"
-        assert resolve_method("auto", time_len=71) == "scan"  # fallback wins
+        assert resolve_method("scan") == "scan"
 
-    def test_e_step_batched_downgrades_fused(self, monkeypatch):
-        """e_step_batched takes materialized likelihoods, so a pallas_fused
-        resolution (the TPU "auto" default) downgrades to the split pallas
-        path there instead of erroring."""
-        from pysvihmm_tpu import messages
-        from pysvihmm_tpu.messages import pallas_fb
-
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: False)
-        rng = np.random.default_rng(0)
-        B, T, K = 4, 16, 4
-        log_pi = jnp.array(np.log(rng.dirichlet(np.ones(K))), jnp.float32)
-        log_A = jnp.array(np.log(rng.dirichlet(np.ones(K), size=K)), jnp.float32)
-        ll = jnp.array(rng.normal(size=(B, T, K)), jnp.float32)
-        a = messages.e_step_batched(log_pi, log_A, ll, method="pallas_fused")
-        b = messages.e_step_batched(log_pi, log_A, ll, method="scan")
-        np.testing.assert_allclose(np.array(a.gamma), np.array(b.gamma), atol=1e-5)
-        np.testing.assert_allclose(
-            np.array(a.trans_stats), np.array(b.trans_stats), rtol=2e-5, atol=1e-6
-        )
+    def test_e_step_batched_downgrades_fused(self):
+        """The fully-fused route is gone: asking for it by name raises
+        instead of silently running something else."""
+        log_pi, log_A, ll = problem(4, 16, 4)
+        with pytest.raises(ValueError, match="unknown E-step method"):
+            messages.e_step_batched(log_pi, log_A, ll, method="fused")
 
     def test_engine_default_method_end_to_end(self):
         """batch_local_step with its default method agrees with explicit scan."""
@@ -215,247 +174,14 @@ class TestPallasFB:
             jnp.float32
         )
 
-        out_p = windowed_local_step(params, GaussianNIW, windows, maskf, offs, "pallas")
+        out_p = windowed_local_step(
+            params, GaussianNIW, windows, maskf, offs, "pallas", interpret=True
+        )
         out_s = windowed_local_step(params, GaussianNIW, windows, maskf, offs, "scan")
         for a, b in zip(jax.tree.leaves(out_p), jax.tree.leaves(out_s)):
             np.testing.assert_allclose(
                 np.array(a), np.array(b), rtol=2e-4, atol=1e-5
             )
-
-class TestPallasFusedEstep:
-    """Fully-fused kernels (likelihood matmul + emission stats in-kernel)."""
-
-    def _gauss_problem(self, B, T, K, D, seed=0):
-        from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(seed), K, D, B, T)
-        prior = make_prior(K, GaussianNIW, obs_dim=D)
-        params = init_params(jax.random.PRNGKey(seed + 1), prior, GaussianNIW, obs)
-        return params, obs
-
-    @pytest.mark.parametrize("B,T,K,D", [(4, 32, 4, 2), (6, 40, 8, 3)])
-    def test_local_step_matches_scan_gaussian(self, B, T, K, D):
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import batch_local_step
-
-        params, obs = self._gauss_problem(B, T, K, D)
-        sf, gf = batch_local_step(params, GaussianNIW, obs, "pallas_fused")
-        ss, gs = batch_local_step(params, GaussianNIW, obs, "scan")
-        np.testing.assert_allclose(np.array(gf), np.array(gs), atol=5e-5)
-        np.testing.assert_allclose(np.array(sf.init), np.array(ss.init), atol=5e-5)
-        np.testing.assert_allclose(np.array(sf.trans), np.array(ss.trans), atol=1e-3)
-        np.testing.assert_allclose(float(sf.log_z), float(ss.log_z), rtol=2e-6)
-        for a, b in zip(jax.tree.leaves(sf.emit), jax.tree.leaves(ss.emit)):
-            np.testing.assert_allclose(np.array(a), np.array(b), rtol=3e-3, atol=2e-3)
-
-    def test_need_gamma_false_same_stats(self):
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import batch_local_step
-
-        params, obs = self._gauss_problem(4, 32, 4, 2, seed=3)
-        s1, g1 = batch_local_step(params, GaussianNIW, obs, "pallas_fused")
-        s0, g0 = batch_local_step(
-            params, GaussianNIW, obs, "pallas_fused", need_gamma=False
-        )
-        assert g0 is None and g1 is not None
-        for a, b in zip(jax.tree.leaves(s0), jax.tree.leaves(s1)):
-            np.testing.assert_allclose(np.array(a), np.array(b), rtol=1e-6, atol=1e-6)
-
-    def test_multinomial_matches_scan(self):
-        from pysvihmm_tpu.data.synthetic import gen_multinomial_dataset
-        from pysvihmm_tpu.distributions import MultinomialDirichlet
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        K, V, B, T = 4, 6, 4, 32
-        obs, _, _ = gen_multinomial_dataset(jax.random.PRNGKey(4), K, V, B, T)
-        prior = make_prior(K, MultinomialDirichlet, num_symbols=V)
-        params = init_params(jax.random.PRNGKey(5), prior, MultinomialDirichlet, obs)
-        sf, _ = batch_local_step(
-            params, MultinomialDirichlet, obs, "pallas_fused", need_gamma=False
-        )
-        ss, _ = batch_local_step(params, MultinomialDirichlet, obs, "scan")
-        np.testing.assert_allclose(np.array(sf.trans), np.array(ss.trans), atol=1e-3)
-        np.testing.assert_allclose(np.array(sf.emit), np.array(ss.emit), atol=2e-3)
-        np.testing.assert_allclose(float(sf.log_z), float(ss.log_z), rtol=2e-6)
-
-    def test_windowed_fused_vs_scan(self):
-        """SVI windows: kept-masks gate emission/init/trans stats identically
-        on the fused path (weights stay OFF the likelihood side — buffer
-        steps must still drive the chain)."""
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import windowed_local_step
-        from pysvihmm_tpu.engines.svi import _gather_windows
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-        from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
-
-        K, D, T, B, W, L = 4, 2, 64, 6, 16, 10
-        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, 1, T)
-        chain = obs[0]
-        prior = make_prior(K, GaussianNIW, obs_dim=D)
-        params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
-        ws = jax.random.randint(jax.random.PRNGKey(2), (B,), 0, T - W + 1)
-        windows = _gather_windows(chain, ws, W)
-        offs = jnp.arange(B) % (W - L + 1)
-        pos = jnp.arange(W)[None, :]
-        maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + L)).astype(jnp.float32)
-        out_f = windowed_local_step(
-            params, GaussianNIW, windows, maskf, offs, "pallas_fused"
-        )
-        out_s = windowed_local_step(params, GaussianNIW, windows, maskf, offs, "scan")
-        for a, b in zip(jax.tree.leaves(out_f), jax.tree.leaves(out_s)):
-            np.testing.assert_allclose(np.array(a), np.array(b), rtol=2e-4, atol=1e-5)
-        # the in-kernel gamma_sel variant (PYSVIHMM_GAMMA_SEL knob: the
-        # per-window offset marginal accumulated in the backward kernel,
-        # no (W, B, K) gamma array at all) must match the gather path
-        import os
-
-        os.environ["PYSVIHMM_GAMMA_SEL"] = "1"
-        try:
-            out_k = windowed_local_step(
-                params, GaussianNIW, windows, maskf, offs, "pallas_fused"
-            )
-        finally:
-            del os.environ["PYSVIHMM_GAMMA_SEL"]
-        for a, b in zip(jax.tree.leaves(out_k), jax.tree.leaves(out_s)):
-            np.testing.assert_allclose(np.array(a), np.array(b), rtol=2e-4, atol=1e-5)
-
-    def test_unpacked_K128_and_odd_D(self):
-        """P=1 (no lane packing, K=128) and an odd feature width (D=3 ->
-        F=13) exercise the fused kernels' non-padded/padded lane layouts."""
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import batch_local_step
-
-        for B, T, K, D in [(2, 16, 128, 2), (4, 24, 4, 3)]:
-            params, obs = self._gauss_problem(B, T, K, D, seed=13 + K)
-            sf, _ = batch_local_step(
-                params, GaussianNIW, obs, "pallas_fused", need_gamma=False
-            )
-            ss, _ = batch_local_step(params, GaussianNIW, obs, "scan")
-            np.testing.assert_allclose(
-                np.array(sf.trans), np.array(ss.trans), atol=2e-3
-            )
-            np.testing.assert_allclose(float(sf.log_z), float(ss.log_z), rtol=3e-6)
-            for a, b in zip(jax.tree.leaves(sf.emit), jax.tree.leaves(ss.emit)):
-                np.testing.assert_allclose(
-                    np.array(a), np.array(b), rtol=4e-3, atol=4e-3
-                )
-
-    def test_large_K_beyond_lane_width(self):
-        """K=256 > the 128-lane width: PK spans multiple lane tiles (P=1).
-        Both kernel paths must agree with scan (and AOT-lower for TPU —
-        tests/test_tpu_lowering.py)."""
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import batch_local_step
-
-        params, obs = self._gauss_problem(2, 16, 256, 2, seed=17)
-        for method in ("pallas_fused", "pallas"):
-            sf, _ = batch_local_step(
-                params, GaussianNIW, obs, method, need_gamma=False
-            )
-            ss, _ = batch_local_step(params, GaussianNIW, obs, "scan")
-            np.testing.assert_allclose(
-                np.array(sf.trans), np.array(ss.trans), atol=2e-3
-            )
-            np.testing.assert_allclose(float(sf.log_z), float(ss.log_z), rtol=3e-6)
-
-    def test_need_gamma_false_multi_tile_init_stats(self):
-        """The gamma0 carry (revisited output block written at the LAST
-        reversed time tile) must be exercised with nT > 1, with and
-        without kept-masks — init_stats corruption here would ship
-        silently at production shapes (T=1000 => ~31 tiles)."""
-        from pysvihmm_tpu.distributions import niw
-        from pysvihmm_tpu.messages.pallas_fb import pallas_estep_fused
-        from pysvihmm_tpu.models.hmm import expected_log_params
-
-        params, obs = self._gauss_problem(4, 64, 4, 2, seed=11)
-        log_pi, log_A = expected_log_params(params)
-        obs_tm = jnp.swapaxes(obs, 0, 1)
-        feats = niw.ell_features(obs_tm)
-        W = niw.ell_feature_matrix(params.emit)
-        w = (rng.random((4, 64)) > 0.3).astype(np.float32)
-        w[0, 0] = 0.0
-        w[1, 0] = 1.0
-        w_tm = jnp.swapaxes(jnp.array(w), 0, 1)
-        for tiles in [(1, 8), (1, 16)]:  # B=4,K=4 packs to R=1; nT = 8 and 4
-            fb0, S0 = pallas_estep_fused(
-                log_pi, log_A, W, feats, interpret=True, tiles=tiles,
-                emit_gamma=False,
-            )
-            fb1, S1 = pallas_estep_fused(
-                log_pi, log_A, W, feats, interpret=True, tiles=tiles,
-                emit_gamma=True,
-            )
-            assert fb0.gamma is None
-            np.testing.assert_allclose(
-                np.array(fb0.init_stats),
-                np.array(fb1.gamma[0].reshape(4, 4)),
-                rtol=1e-6, atol=1e-7,
-            )
-            np.testing.assert_allclose(np.array(S0), np.array(S1), rtol=1e-6)
-            # gated: init_stats = w_0 * gamma_0
-            fbw, _ = pallas_estep_fused(
-                log_pi, log_A, W, feats, weights=w_tm, interpret=True,
-                tiles=tiles, emit_gamma=False,
-            )
-            np.testing.assert_allclose(
-                np.array(fbw.init_stats),
-                np.array(fb1.gamma[0].reshape(4, 4)) * w[:, 0][:, None],
-                rtol=1e-6, atol=1e-7,
-            )
-
-    def test_large_vocab_multinomial_segment_sum(self):
-        """V > ONE_HOT_MAX_V: fused falls back to packed, whose stats use a
-        segment-sum (no dense one-hot); results still match scan."""
-        from pysvihmm_tpu.data.synthetic import gen_multinomial_dataset
-        from pysvihmm_tpu.distributions import MultinomialDirichlet
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import ONE_HOT_MAX_V, init_params, make_prior
-
-        K, V, B, T = 4, ONE_HOT_MAX_V + 44, 4, 32
-        obs, _, _ = gen_multinomial_dataset(jax.random.PRNGKey(6), K, V, B, T)
-        prior = make_prior(K, MultinomialDirichlet, num_symbols=V)
-        params = init_params(jax.random.PRNGKey(7), prior, MultinomialDirichlet, obs)
-        w = jnp.array((rng.random((B, T)) > 0.3).astype(np.float32))
-        for method in ("pallas_fused", "pallas"):
-            sf, _ = batch_local_step(
-                params, MultinomialDirichlet, obs, method, weights=w,
-                need_gamma=False,
-            )
-            ss, _ = batch_local_step(
-                params, MultinomialDirichlet, obs, "scan", weights=w
-            )
-            np.testing.assert_allclose(np.array(sf.emit), np.array(ss.emit), atol=2e-3)
-            np.testing.assert_allclose(np.array(sf.init), np.array(ss.init), atol=1e-5)
-
-    def test_tiles_override(self):
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import _pallas_fused_estep
-        from pysvihmm_tpu.messages.pallas_fb import pallas_estep_fused
-        from pysvihmm_tpu.models.hmm import expected_log_params
-
-        params, obs = self._gauss_problem(16, 64, 32, 2, seed=7)  # P=4, R=4
-        log_pi, log_A = expected_log_params(params)
-        from pysvihmm_tpu.distributions import niw
-
-        obs_tm = jnp.swapaxes(obs, 0, 1)
-        feats = niw.ell_features(obs_tm)
-        W = niw.ell_feature_matrix(params.emit)
-        ref, Sref = pallas_estep_fused(
-            log_pi, log_A, W, feats, interpret=True, emit_gamma=True
-        )
-        for tiles in [(4, 8), (2, 16), (1, 32)]:
-            fb, S = pallas_estep_fused(
-                log_pi, log_A, W, feats, interpret=True, tiles=tiles, emit_gamma=True
-            )
-            np.testing.assert_allclose(np.array(fb.gamma), np.array(ref.gamma), atol=2e-6)
-            np.testing.assert_allclose(np.array(S), np.array(Sref), rtol=2e-5, atol=2e-5)
-            np.testing.assert_allclose(
-                np.array(fb.trans_stats), np.array(ref.trans_stats), atol=2e-5
-            )
-
 
 class TestPallasAccuracy:
     def test_long_chain_f64_oracle(self):
@@ -521,9 +247,8 @@ class TestPallasAccuracy:
 
 
 class TestPallasDiagGaussian:
-    """The fused paths are family-generic through ell_features /
-    ell_feature_matrix / unpack_flat_stats: verify on DiagonalGaussianNIG
-    (feature width 1+2D — a different lane packing than NIW's 1+D+D^2)."""
+    """The kernel path is family-generic: verify the engine local steps on
+    DiagonalGaussianNIG against scan."""
 
     def _problem(self, B, T, K, D, seed=0):
         from pysvihmm_tpu.data.synthetic import gen_diag_gaussian_dataset
@@ -537,14 +262,19 @@ class TestPallasDiagGaussian:
         )
         return params, obs
 
-    @pytest.mark.parametrize("method", ["pallas", "pallas_fused"])
+    @pytest.mark.parametrize("method", ["pallas", "pallas_weighted"])
     def test_local_step_matches_scan(self, method):
         from pysvihmm_tpu.distributions import DiagonalGaussianNIG
         from pysvihmm_tpu.engines.base import batch_local_step
 
         params, obs = self._problem(4, 32, 4, 3)
-        sf, gf = batch_local_step(params, DiagonalGaussianNIG, obs, method)
-        ss, gs = batch_local_step(params, DiagonalGaussianNIG, obs, "scan")
+        w = None
+        if method == "pallas_weighted":
+            w = jnp.asarray((rng.random((4, 32)) > 0.3).astype(np.float32))
+        sf, gf = batch_local_step(
+            params, DiagonalGaussianNIG, obs, "pallas", weights=w, interpret=True
+        )
+        ss, gs = batch_local_step(params, DiagonalGaussianNIG, obs, "scan", weights=w)
         np.testing.assert_allclose(np.array(gf), np.array(gs), atol=5e-5)
         np.testing.assert_allclose(np.array(sf.init), np.array(ss.init), atol=5e-5)
         np.testing.assert_allclose(np.array(sf.trans), np.array(ss.trans), atol=1e-3)
@@ -562,78 +292,10 @@ class TestPallasDiagGaussian:
         maskf = maskf.at[:, :4].set(0.0).at[:, -4:].set(0.0)
         offs = jnp.full((6,), 4, jnp.int32)
         outs = {}
-        for method in ("pallas", "pallas_fused", "scan"):
+        for method in ("pallas", "scan"):
             outs[method] = windowed_local_step(
-                params, DiagonalGaussianNIG, obs, maskf, offs, method
+                params, DiagonalGaussianNIG, obs, maskf, offs, method,
+                interpret=method == "pallas",
             )
-        for method in ("pallas", "pallas_fused"):
-            for a, b in zip(jax.tree.leaves(outs[method][:3]), jax.tree.leaves(outs["scan"][:3])):
-                np.testing.assert_allclose(np.array(a), np.array(b), rtol=3e-3, atol=2e-3)
-
-
-class TestFusedFeatureRoute:
-    """Pin the production feature route of the fused E-step.
-
-    BENCH_r02.json's 44k seq/s regression (vs 90.7k) came from an
-    end-of-round WIP snapshot that silently made per-slot packed feature
-    construction the default: obs[:, p::P] strided slices + a ragged
-    P*F lane concat are 2x slower than the dense build + in-call packed
-    reshape they replaced. The dense route must stay the default; the
-    measured-slower experiments stay behind env knobs.
-    """
-
-    def _args(self, monkeypatch, env=None):
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import _fused_feats_W
-
-        for var in ("PYSVIHMM_INKERNEL_FEATS", "PYSVIHMM_SLOT_FEATS"):
-            monkeypatch.delenv(var, raising=False)
-        if env:
-            monkeypatch.setenv(*env)
-        K, D, T, B = 64, 8, 16, 8  # P = 2 packing at K=64
-        rng = np.random.default_rng(0)
-        obs_tm = jnp.asarray(rng.normal(size=(T, B, D)), jnp.float32)
-        prior_emit = GaussianNIW.make_prior(K, D)
-        return GaussianNIW, prior_emit, obs_tm, K, _fused_feats_W
-
-    def test_default_is_dense_unpacked(self, monkeypatch):
-        emission, emit_params, obs_tm, K, fn = self._args(monkeypatch)
-        feats, W, kind, packing = fn(emission, emit_params, obs_tm, K)
-        F = 1 + 8 + 36  # triu feature layout (niw.ell_features)
-        assert kind is None and packing == 0
-        assert feats.shape == (16, 8, F) and W.shape == (F, K)
-
-    def test_slot_knob_packs(self, monkeypatch):
-        emission, emit_params, obs_tm, K, fn = self._args(
-            monkeypatch, env=("PYSVIHMM_SLOT_FEATS", "1")
-        )
-        feats, W, kind, packing = fn(emission, emit_params, obs_tm, K)
-        assert kind is None and packing == 2
-        assert feats.shape == (16, 4, 2 * (1 + 8 + 36))
-
-    def test_inkernel_knob_passes_raw_obs(self, monkeypatch):
-        emission, emit_params, obs_tm, K, fn = self._args(
-            monkeypatch, env=("PYSVIHMM_INKERNEL_FEATS", "1")
-        )
-        feats, W, kind, packing = fn(emission, emit_params, obs_tm, K)
-        assert kind == "niw" and packing == 0
-        assert feats.shape == obs_tm.shape
-
-    def test_slot_route_matches_dense(self, monkeypatch):
-        """The opt-in slot route must stay numerically identical."""
-        from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
-        from pysvihmm_tpu.distributions import GaussianNIW
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        K, D, B, T = 64, 4, 8, 16
-        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, B, T)
-        prior = make_prior(K, GaussianNIW, obs_dim=D)
-        params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
-        monkeypatch.delenv("PYSVIHMM_SLOT_FEATS", raising=False)
-        s0, g0 = batch_local_step(params, GaussianNIW, obs, "pallas_fused")
-        monkeypatch.setenv("PYSVIHMM_SLOT_FEATS", "1")
-        s1, g1 = batch_local_step(params, GaussianNIW, obs, "pallas_fused")
-        np.testing.assert_allclose(np.array(g0), np.array(g1), atol=1e-6)
-        for a, b in zip(jax.tree.leaves(s0), jax.tree.leaves(s1)):
-            np.testing.assert_allclose(np.array(a), np.array(b), rtol=1e-5, atol=1e-6)
+        for a, b in zip(jax.tree.leaves(outs["pallas"]), jax.tree.leaves(outs["scan"])):
+            np.testing.assert_allclose(np.array(a), np.array(b), rtol=3e-3, atol=2e-3)

@@ -96,29 +96,20 @@ class TestEngineIntegration:
         assert resolve_emission("poisson") is PoissonGamma
 
     def test_estep_paths_agree(self, dataset):
-        """scan / pallas (interpret) / pallas_fused produce the same
-        stats and log-evidence (exact kernels pinned)."""
+        """scan and the forward-backward kernel (interpreter) produce the
+        same stats and smoothed marginals."""
         from pysvihmm_tpu.engines.base import batch_local_step
 
         obs, _, _ = dataset
         obs = obs[:8, :64]
         prior = make_prior(4, PoissonGamma, obs_dim=3)
         params = init_params(jax.random.PRNGKey(1), prior, PoissonGamma, obs)
-        import os
-
-        old = {v: os.environ.get(v) for v in
-               ("PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC", "PYSVIHMM_STATS_PREC")}
-        os.environ.update({v: "highest" for v in old})
-        try:
-            outs = {
-                m: batch_local_step(params, PoissonGamma, obs, m)
-                for m in ("scan", "pallas", "pallas_fused")
-            }
-        finally:
-            for v, val in old.items():
-                os.environ.pop(v, None) if val is None else os.environ.__setitem__(v, val)
+        outs = {
+            m: batch_local_step(params, PoissonGamma, obs, m, interpret=m == "pallas")
+            for m in ("scan", "pallas")
+        }
         ref_s, ref_logc = outs["scan"]
-        for m in ("pallas", "pallas_fused"):
+        for m in ("pallas",):
             s, logc = outs[m]
             np.testing.assert_allclose(np.array(logc), np.array(ref_logc),
                                        rtol=2e-4, atol=2e-4)

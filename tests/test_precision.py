@@ -1,25 +1,25 @@
-"""Regression guards for the tiered matmul-precision policy.
+"""Regression guards for the matmul-precision policy (utils/precision.py).
 
-utils/precision.py encodes a measured-on-TPU policy (BASELINE.md): chain
-recursions and engine entry points trace at full-f32 ("float32"/HIGHEST —
-JAX's default 1-pass bf16 diverged VB trajectories 6e-2 from the f64
-oracle), while one-shot bulk contractions keep MXU throughput (the packed
-emission stat sums at 1-pass DEFAULT, the likelihood einsum at 3-pass
-HIGH). CPU executes every tier identically, so these tests pin the policy
-where it is visible on any backend: the stablehlo ``precision = [...]``
-attributes of the lowered dots.
+On an H100 an f32 dot at JAX's default precision, and at "high", runs in
+TF32: measured 2.8e-4 relative and 3 nats absolute on the likelihood form
+against float64. So every dot on the inference path must trace at full f32
+(HIGHEST), including the forward-backward kernels' own dots. CPU executes
+every precision identically, so these tests pin the policy where it is
+visible on any backend: the stablehlo ``precision = [...]`` attributes of
+the lowered dots.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import pytest
 
 from pysvihmm_tpu.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu.distributions import GaussianNIW
 from pysvihmm_tpu.engines.base import batch_local_step
 from pysvihmm_tpu.models.hmm import init_params, make_prior
-from pysvihmm_tpu.utils.precision import bulk_precision, f32_matmuls
+from pysvihmm_tpu.utils.precision import f32_matmuls
 
 
 def _dot_lines(lowered_text):
@@ -33,50 +33,36 @@ def test_f32_matmuls_forces_highest():
     assert "[HIGHEST, HIGHEST]" in line
 
 
-def test_bulk_precision_overrides_to_high_inside_f32_guard():
+def test_f32_matmuls_is_exact_f32_not_tf32():
+    """The guard names the full-f32 algorithm, not "high" (TF32 on GPU)."""
     x = jnp.ones((8, 8))
-
-    def f(a):
-        with bulk_precision():
-            return a @ a
-
-    txt = jax.jit(f32_matmuls(f)).lower(x).as_text()
+    txt = jax.jit(f32_matmuls(lambda a: a @ a)).lower(x).as_text()
     (line,) = _dot_lines(txt)
-    assert "[HIGH, HIGH]" in line
+    assert "HIGH," not in line and "DEFAULT" not in line
 
 
-def _lower_local_step(method):
+def _problem():
     K, D, B, T = 4, 2, 8, 40
     obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, B, T)
     prior = make_prior(K, GaussianNIW, obs_dim=D)
     params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
-    fn = jax.jit(lambda p, o: batch_local_step(p, GaussianNIW, o, method))
+    return prior, params, obs
+
+
+def _lower_local_step(method, interpret=False):
+    _, params, obs = _problem()
+    fn = jax.jit(lambda p, o: batch_local_step(p, GaussianNIW, o, method,
+                                               interpret=interpret))
     return fn.lower(params, obs).as_text()
 
 
 def test_pallas_path_precision_tiers():
-    """The production E-step carries its precision tiers at once: the
-    likelihood einsum under bulk_precision() and the XLA-side emission
-    stat contraction on the stats tier (default bf16x3 -> native HIGH),
-    with the chain dots' precision living INSIDE the tpu_custom_call."""
-    txt = _lower_local_step("pallas")
+    """The kernel path, lowered through the Pallas interpreter so the
+    kernel's own dots are visible, runs every dot at HIGHEST: the
+    likelihood form, the emission statistics and the chain recursions."""
+    txt = _lower_local_step("pallas", interpret=True)
     dots = _dot_lines(txt)
-    assert any("[HIGH, HIGH]" in l for l in dots)
-    # no FLOAT32 dot may run at 1-pass bf16; DEFAULT-precision dots over
-    # explicitly-bf16 operands are the interpret-mode rendering of the
-    # kernels' bf16x3 emulation passes (exact native-bf16 MXU passes)
-    assert not any(
-        "[DEFAULT, DEFAULT]" in l and "xbf16" not in l for l in dots
-    )
-    # "highest" env restores full-f32 stat sums
-    import os
-
-    os.environ["PYSVIHMM_STATS_PREC"] = "highest"
-    try:
-        txt_hi = _lower_local_step("pallas")
-    finally:
-        del os.environ["PYSVIHMM_STATS_PREC"]
-    assert any("[HIGHEST, HIGHEST]" in l for l in _dot_lines(txt_hi))
+    assert dots and all("[HIGHEST, HIGHEST]" in l for l in dots)
 
 
 def test_scan_path_has_no_default_precision_dots():
@@ -88,230 +74,53 @@ def test_scan_path_has_no_default_precision_dots():
     assert not any("[DEFAULT, DEFAULT]" in l for l in dots)
 
 
-class TestKernelPrecisionKnobs:
-    """The extended in-kernel precision tiers (messages/pallas_fb.py):
-    env-resolved specs, and interpret-mode parity of the "bf16x3" 3-pass
-    bf16-split HIGH emulation (the production default) against the 6-pass
-    HIGHEST exact reference.
+def _entry(name):
+    """(jitted fn, args) for one inference entry point."""
+    from pysvihmm_tpu.engines import base
 
-    Measured interpret-mode errors vs HIGHEST on the K=64 fused E-step
-    (max |d| / ||ref||_inf per stat leaf): chain/pairwise tier ~4e-6,
-    stat tier ~2e-6, likelihood tier ~2e-4 (one bf16-split error in the
-    log-likelihood, amplified once through exp). Tolerances below hold
-    3-5x margin.
-    """
-
-    def _run(self, monkeypatch, env):
-        import numpy as np
-
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        for var in ("PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC",
-                    "PYSVIHMM_STATS_PREC"):
-            monkeypatch.delenv(var, raising=False)
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
-        K, D, B, T = 64, 4, 8, 32
-        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, B, T)
-        prior = make_prior(K, GaussianNIW, obs_dim=D)
-        params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
-        return batch_local_step(params, GaussianNIW, obs, "pallas_fused")
-
-    def test_env_resolution(self, monkeypatch):
-        from pysvihmm_tpu.messages.pallas_fb import kernel_precisions
-
-        for var in ("PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC",
-                    "PYSVIHMM_STATS_PREC"):
-            monkeypatch.delenv(var, raising=False)
-        assert kernel_precisions() == ("bf16x3",) * 3
-        monkeypatch.setenv("PYSVIHMM_KERNEL_PREC", "highest")
-        monkeypatch.setenv("PYSVIHMM_STATS_PREC", "default")
-        assert kernel_precisions() == (
-            jax.lax.Precision.HIGHEST, "bf16x3", jax.lax.Precision.DEFAULT
-        )
-        monkeypatch.setenv("PYSVIHMM_LL_PREC", "fast")  # unknown value
-        import pytest
-
-        with pytest.raises(ValueError):
-            kernel_precisions()
-
-    _ALL_HIGHEST = {
-        "PYSVIHMM_KERNEL_PREC": "highest",
-        "PYSVIHMM_LL_PREC": "highest",
-        "PYSVIHMM_STATS_PREC": "highest",
+    prior, params, obs = _problem()
+    chain = obs[0]
+    mask = jnp.ones(obs.shape[:2])
+    offs = jnp.zeros(obs.shape[0], jnp.int32)
+    fns = {
+        "windowed_local_step": lambda p: base.windowed_local_step(
+            p, GaussianNIW, obs, mask, offs, "scan"),
+        "long_chain_fused": lambda p: base.long_chain_local_stats(
+            p, GaussianNIW, chain, block_size=8, impl="fused"),
+        "long_chain_twophase": lambda p: base.long_chain_local_stats(
+            p, GaussianNIW, chain, block_size=8, impl="twophase"),
+        "long_chain_decode": lambda p: base.long_chain_decode(
+            p, GaussianNIW, chain, block_size=8, chunks=2),
+        "lower_bound": lambda p: base.lower_bound(p, prior, GaussianNIW, obs),
+        "predictive_log_likelihood": lambda p: base.predictive_log_likelihood(
+            p, GaussianNIW, obs),
     }
+    return jax.jit(fns[name]), params
 
-    def test_bf16x3_parity(self, monkeypatch):
-        """Each tier alone (others pinned HIGHEST) vs the all-HIGHEST
-        exact reference stays inside the measured bounds."""
-        import numpy as np
 
-        ref_s, ref_logc = self._run(monkeypatch, self._ALL_HIGHEST)
-        tol = {
-            "PYSVIHMM_KERNEL_PREC": 2e-5,
-            "PYSVIHMM_STATS_PREC": 1e-5,
-            "PYSVIHMM_LL_PREC": 1e-3,
-        }
-        for var, t in tol.items():
-            env = dict(self._ALL_HIGHEST, **{var: "bf16x3"})
-            s, logc = self._run(monkeypatch, env)
-            assert float(jnp.max(jnp.abs(logc - ref_logc))) < 5e-3, var
-            for a, b in zip(jax.tree.leaves(ref_s), jax.tree.leaves(s)):
-                a, b = np.asarray(a), np.asarray(b)
-                scale = np.abs(a).max() + 1e-12
-                assert np.abs(a - b).max() / scale < t, (var, a.shape)
-
-    def test_production_default_parity(self, monkeypatch):
-        """The no-env production default (all tiers bf16x3) vs exact."""
-        import numpy as np
-
-        ref_s, _ = self._run(monkeypatch, self._ALL_HIGHEST)
-        s, _ = self._run(monkeypatch, {})
-        for a, b in zip(jax.tree.leaves(ref_s), jax.tree.leaves(s)):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = np.abs(a).max() + 1e-12
-            assert np.abs(a - b).max() / scale < 1e-3, a.shape
+@pytest.mark.parametrize(
+    "name",
+    ["windowed_local_step", "long_chain_fused", "long_chain_twophase",
+     "long_chain_decode", "lower_bound", "predictive_log_likelihood"],
+)
+def test_no_tf32_dots_on_inference_path(name):
+    """No entry point lowers a dot at DEFAULT or HIGH (TF32 on the GPU)."""
+    fn, params = _entry(name)
+    dots = _dot_lines(fn.lower(params).as_text())
+    assert dots, name
+    assert not any("[DEFAULT" in l or "[HIGH," in l for l in dots), name
 
 
 class TestStorageDtypeKnobs:
-    """The TWO bf16 STORAGE defaults that ship as TPU production behavior
-    (VERDICT r4 weak #1: both were regression-untested):
-
-    * PYSVIHMM_BF16_ALPHA — bf16-stored alpha, default ON for gamma-free
-      TPU training calls (messages/pallas_fb.py::_alpha_store_dtype).
-    * PYSVIHMM_BF16_FEATS — bf16 feature storage, default ON on TPU only
-      for multinomial one-hot (lossless); REJECTED for the Gaussian
-      families after the measured windowed-SVI NIW-PSD failure
-      (engines/base.py::_feats_store_dtype, r4_tpu.jsonl CORRECTION).
-
-    Covers: the dispatch policy itself, interpret-mode numerical parity
-    with the knobs FORCED on (the CPU suite otherwise only ever runs the
-    f32 paths), the exact-alpha evaluation override (lower_bound), and a
-    mechanistic pin of the Gaussian bf16-feats failure mode.
-    """
-
-    def _clear(self, monkeypatch):
-        for var in ("PYSVIHMM_BF16_ALPHA", "PYSVIHMM_BF16_FEATS",
-                    "PYSVIHMM_KERNEL_PREC", "PYSVIHMM_LL_PREC",
-                    "PYSVIHMM_STATS_PREC"):
-            monkeypatch.delenv(var, raising=False)
-
-    def test_alpha_storage_policy(self, monkeypatch):
-        from pysvihmm_tpu.messages import pallas_fb
-
-        self._clear(monkeypatch)
-        assert pallas_fb._alpha_store_dtype(False) == jnp.float32  # off-TPU
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        assert pallas_fb._alpha_store_dtype(False) == jnp.bfloat16
-        assert pallas_fb._alpha_store_dtype(True) == jnp.float32
-        monkeypatch.setenv("PYSVIHMM_BF16_ALPHA", "0")
-        assert pallas_fb._alpha_store_dtype(False) == jnp.float32
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: False)
-        monkeypatch.setenv("PYSVIHMM_BF16_ALPHA", "1")
-        assert pallas_fb._alpha_store_dtype(False) == jnp.bfloat16
-
-    def test_feats_storage_policy(self, monkeypatch):
-        from pysvihmm_tpu.distributions import MultinomialDirichlet
-        from pysvihmm_tpu.engines.base import _feats_store_dtype
-        from pysvihmm_tpu.messages import pallas_fb
-
-        self._clear(monkeypatch)
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        # Gaussian stays f32 EVEN ON TPU — the measured rejection
-        assert _feats_store_dtype(GaussianNIW) == jnp.float32
-        # multinomial one-hot is lossless in bf16 -> half traffic
-        assert _feats_store_dtype(MultinomialDirichlet) == jnp.bfloat16
-        monkeypatch.setenv("PYSVIHMM_BF16_FEATS", "0")
-        assert _feats_store_dtype(MultinomialDirichlet) == jnp.float32
-        monkeypatch.setenv("PYSVIHMM_BF16_FEATS", "1")
-        assert _feats_store_dtype(GaussianNIW) == jnp.bfloat16
-
-    def _estep(self, monkeypatch, env, exact=False, seed=0):
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        self._clear(monkeypatch)
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
-        # the knob is read at TRACE time inside the jitted kernel wrapper:
-        # invalidate cached executables so each env setting re-traces
-        jax.clear_caches()
-        K, D, B, T = 16, 4, 8, 64
-        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(seed), K, D, B, T)
-        prior = make_prior(K, GaussianNIW, obs_dim=D)
-        params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
-        stats, _ = batch_local_step(
-            params, GaussianNIW, obs, "pallas_fused", need_gamma=False,
-            exact=exact,
-        )
-        return stats
-
-    def test_bf16_alpha_forced_parity_and_exact_override(self, monkeypatch):
-        """BF16_ALPHA=1 through the interpret-mode fused kernels: training
-        stats stay within the bf16 band of the f32 run; the knob is LIVE
-        (log_z moves); and exact=True (the lower_bound path) pins f32
-        storage so the evaluation ELBO is unchanged by the knob."""
-        import numpy as np
-
-        ref = self._estep(monkeypatch, {"PYSVIHMM_BF16_ALPHA": "0"})
-        bf = self._estep(monkeypatch, {"PYSVIHMM_BF16_ALPHA": "1"})
-        # knob live: bf16-stored alpha perturbs the scales log_c derives from
-        dz = abs(float(bf.log_z) - float(ref.log_z))
-        assert 0.0 < dz / abs(float(ref.log_z)) < 1e-3
-        for a, b in zip(jax.tree.leaves(ref.emit), jax.tree.leaves(bf.emit)):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = np.abs(a).max() + 1e-12
-            assert np.abs(a - b).max() / scale < 2e-2
-        np.testing.assert_allclose(
-            np.asarray(bf.trans), np.asarray(ref.trans),
-            rtol=2e-2, atol=2e-2 * float(np.abs(np.asarray(ref.trans)).max()),
-        )
-        ex = self._estep(monkeypatch, {"PYSVIHMM_BF16_ALPHA": "1"}, exact=True)
-        np.testing.assert_allclose(float(ex.log_z), float(ref.log_z), rtol=1e-6)
-
-    def test_bf16_feats_multinomial_lossless(self, monkeypatch):
-        """One-hot features are exactly representable in bf16: the forced
-        bf16 run must match the forced f32 run to kernel tolerance."""
-        import numpy as np
-
-        from pysvihmm_tpu.data.synthetic import gen_multinomial_dataset
-        from pysvihmm_tpu.distributions import MultinomialDirichlet
-        from pysvihmm_tpu.engines.base import batch_local_step
-        from pysvihmm_tpu.models.hmm import init_params, make_prior
-
-        K, V, B, T = 8, 12, 8, 64
-        obs, _, _ = gen_multinomial_dataset(jax.random.PRNGKey(2), K, V, B, T)
-        prior = make_prior(K, MultinomialDirichlet, num_symbols=V)
-        params = init_params(
-            jax.random.PRNGKey(3), prior, MultinomialDirichlet, obs
-        )
-        out = {}
-        for v in ("0", "1"):
-            self._clear(monkeypatch)
-            monkeypatch.setenv("PYSVIHMM_BF16_FEATS", v)
-            jax.clear_caches()
-            out[v], _ = batch_local_step(
-                params, MultinomialDirichlet, obs, "pallas_fused",
-                need_gamma=False,
-            )
-        np.testing.assert_allclose(
-            float(out["1"].log_z), float(out["0"].log_z), rtol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(out["1"].emit), np.asarray(out["0"].emit),
-            rtol=1e-5, atol=1e-5,
-        )
+    """Why no Gaussian statistic is ever stored in bf16."""
 
     def test_bf16_feats_gaussian_breaks_niw_psd(self, monkeypatch):
-        """Mechanistic pin of the measured rejection (r4_tpu.jsonl
-        CORRECTION): a collapsed weak state — gamma mass on near-identical
+        """Mechanistic pin of why features stay f32: a collapsed weak state — gamma mass on near-identical
         observations, the windowed-SVI failure regime — rounds its
         y (x) y second moments with a SYSTEMATIC bf16 bias that the
         mean-product subtraction cannot cancel, so the NIW posterior's psi
         loses positive-definiteness and the NEXT E-step goes non-finite.
-        The same stats in f32 keep a healthy PSD margin. This is why
-        _feats_store_dtype rejects bf16 for the Gaussian families."""
+        The same stats in f32 keep a healthy PSD margin."""
         import numpy as np
 
         rng_l = np.random.default_rng(0)

@@ -54,10 +54,10 @@ class TestShardedLocalStep:
             np.testing.assert_allclose(np.array(a), np.array(b), rtol=2e-4, atol=1e-4)
 
     def test_pallas_inside_shard_map(self, mesh):
-        """The production TPU default (fused kernels inside shard_map, with
-        per-shard lane packing chosen from the LOCAL batch) matches the
-        single-device scan path — run in pallas interpret mode on the CPU
-        mesh (B_local = 2 per device exercises packing from B_local)."""
+        """The GPU default (the forward-backward kernel inside shard_map,
+        each shard padding its LOCAL batch to whole blocks) matches the
+        single-device scan path — run in the Pallas interpreter on the CPU
+        mesh (B_local = 2 per device, padded to a 16-row block)."""
         K, D, B, T = 4, 2, 16, 96
         obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(3), K, D, B, T)
         prior = make_prior(K, GaussianNIW, obs_dim=D)
@@ -66,7 +66,9 @@ class TestShardedLocalStep:
         single, _ = batch_local_step(params, GaussianNIW, obs, "scan")
         obs_sharded = shard_batch(obs, mesh)
         sharded = jax.jit(
-            lambda p, o: sharded_local_step(p, GaussianNIW, o, mesh, "pallas")
+            lambda p, o: sharded_local_step(
+                p, GaussianNIW, o, mesh, "pallas", interpret=True
+            )
         )(params, obs_sharded)
         for a, b in zip(jax.tree.leaves(single), jax.tree.leaves(sharded)):
             np.testing.assert_allclose(np.array(a), np.array(b), rtol=2e-4, atol=1e-4)

@@ -1,9 +1,7 @@
 """End-to-end smoke: one tiny engine fit per family through the public API.
 
 Part of the <2-min SMOKE TIER (scripts/smoke.sh) — the commit gate that
-must be green before ANY snapshot commit (VERDICT r1 item 2 / r3 item 1:
-two rounds shipped never-executed code in end-of-round snapshots; the
-smoke tier removes the "full suite takes 21 min" excuse). The full tier
+must be green before ANY snapshot commit. The full tier
 (`pytest tests/ -q`) remains the release bar.
 """
 

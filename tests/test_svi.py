@@ -17,68 +17,49 @@ from pysvihmm_tpu.models.hmm import init_params, make_prior
 
 
 class TestWindowPlanning:
-    """Regression for the round-1 flagship bug: on TPU, "auto" resolves to
-    "pallas_fused", and the default SVI window (L=50, b=10 -> W=70, not a
-    multiple of 8) must be PADDED to W=72 so the fused kernels run — not
-    silently fall back to scan (VERDICT.md round 1, item 1)."""
+    """The windowed engines' shared planner (messages.plan_window): the
+    window is the kept subchain plus a buffer on each side, W = L + 2b, on
+    every backend, and "auto" picks the E-step by backend."""
 
-    def test_auto_on_tpu_pads_default_window_to_fused(self, monkeypatch):
+    @pytest.mark.parametrize("cuda,method", [(False, "scan"), (True, "pallas")])
+    def test_default_window_geometry(self, monkeypatch, cuda, method):
         from pysvihmm_tpu import messages
-        from pysvihmm_tpu.messages import pallas_fb
 
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        monkeypatch.delenv("PYSVIHMM_ESTEP_METHOD", raising=False)
-        method, W, b_left = messages.plan_window("auto", 50, 10, 10_000)
-        assert method == "pallas_fused"
-        assert W == 72  # 70 rounded up to a multiple of 8
-        assert b_left == 11  # extra pad split onto the left buffer
+        monkeypatch.setattr(messages, "on_cuda", lambda: cuda)
+        assert messages.plan_window("auto", 50, 10) == (method, 70, 10)
 
-    def test_auto_on_tpu_pads_for_explicit_pallas_env(self, monkeypatch):
+    def test_explicit_method_passes_through(self):
         from pysvihmm_tpu import messages
-        from pysvihmm_tpu.messages import pallas_fb
 
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        monkeypatch.setenv("PYSVIHMM_ESTEP_METHOD", "pallas")
-        method, W, _ = messages.plan_window("auto", 50, 10, 10_000)
-        assert method == "pallas"
-        assert W == 72
-
-    def test_auto_off_tpu_resolves_scan_unpadded(self, monkeypatch):
-        from pysvihmm_tpu import messages
-        from pysvihmm_tpu.messages import pallas_fb
-
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: False)
-        method, W, b_left = messages.plan_window("auto", 50, 10, 10_000)
-        assert method == "scan"
-        assert W == 70
-        assert b_left == 10
-
-    def test_unpaddable_window_falls_back_to_scan(self, monkeypatch):
-        # W == T leaves no room to pad; a 70-step whole-chain window has no
-        # bounded Mosaic-legal time tile, so "auto" must land on scan
-        from pysvihmm_tpu import messages
-        from pysvihmm_tpu.messages import pallas_fb
-
-        monkeypatch.setattr(pallas_fb, "on_tpu", lambda: True)
-        monkeypatch.delenv("PYSVIHMM_ESTEP_METHOD", raising=False)
-        method, W, _ = messages.plan_window("auto", 50, 10, 70)
-        assert method == "scan"
-        assert W == 70
+        assert messages.plan_window("pallas", 50, 10) == ("pallas", 70, 10)
+        assert messages.plan_window("blocked", 30, 0) == ("blocked", 30, 0)
 
     def test_make_step_runs_with_padded_window(self):
         # end-to-end: the default config (W=70) goes through make_step's
-        # plan_window path and still produces a correct update off-TPU
+        # plan_window path and produces a finite update on the CPU
         K, D, T = 3, 2, 400
         obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, 1, T)
         chain = obs[0]
         prior = make_prior(K, GaussianNIW, obs_dim=D)
         params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, chain[None])
         cfg = svi.SVIConfig(batch_size=4, subchain_len=50, buffer=10)
-        step = svi.make_step(GaussianNIW, cfg, T, method="pallas")
+        step = svi.make_step(GaussianNIW, cfg, T)
         st = svi.init_state(params, jax.random.PRNGKey(2))
         st2, metrics = step(st, prior, chain)
         assert jnp.isfinite(metrics["noisy_elbo"])
         assert int(st2.step) == 1
+
+    def test_kernel_method_needs_cuda(self):
+        # an explicit kernel request on the CPU fails instead of running
+        # the interpreter behind the caller's back
+        K, D, T = 3, 2, 200
+        obs, _, _ = gen_gaussian_dataset(jax.random.PRNGKey(0), K, D, 1, T)
+        prior = make_prior(K, GaussianNIW, obs_dim=D)
+        params = init_params(jax.random.PRNGKey(1), prior, GaussianNIW, obs)
+        cfg = svi.SVIConfig(batch_size=4, subchain_len=50, buffer=10)
+        step = svi.make_step(GaussianNIW, cfg, T, method="pallas")
+        with pytest.raises(ValueError, match="CUDA"):
+            step(svi.init_state(params, jax.random.PRNGKey(2)), prior, obs[0])
 
 
 class TestScalingUnbiasedness:

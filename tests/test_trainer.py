@@ -78,7 +78,7 @@ class TestStreamedTrainer:
         """A run killed mid-corpus and restarted from its checkpoint must
         land on the SAME final state as an uninterrupted run: the loader
         position is a pure function of the checkpointed step counter, and
-        schedule/adaptive state ride in the checkpoint (VERDICT r3 item 6)."""
+        schedule/adaptive state ride in the checkpoint."""
         prior, p0, step, loader = self._setup(tmp_path)
         key = jax.random.PRNGKey(22)
 
